@@ -1,0 +1,40 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version (``ref.py``), which the wrapper runs for tensors on the CPU:
+
+  vr_update/   fused CentralVR/SAGA update — CUDA C++ for sm_90a; replaces
+               the Pallas kernel ``repro/kernels/vr_update/kernel.py``
+
+``resolve_fused()`` is the one place that turns a ``fused=`` flag into a
+decision, so every caller agrees on the dispatch.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def has_kernel_support(device) -> bool:
+    """True on a CUDA device of compute capability 9.0 (Hopper), the one
+    target the kernels are compiled for."""
+    device = torch.device(device)
+    return (device.type == "cuda"
+            and torch.cuda.get_device_capability(device) == (9, 0))
+
+
+def resolve_fused(flag, device) -> bool:
+    """Resolve a ``fused=True|False|"auto"`` flag for runs on ``device``.
+
+    * True   -> the kernel path: on a CUDA tensor the wrapper launches the
+                hand-written kernel (or raises); on a CPU tensor it runs
+                the kernel's plain version, the counterpart of the
+                reference's Pallas interpret mode.
+    * "auto" -> the kernel path only where it is compiled for the device
+                (a Hopper card), else the unfused body.
+    * False  -> the unfused body.
+    """
+    if flag == "auto":
+        return has_kernel_support(device)
+    if flag is True:
+        return True
+    if flag is False or flag is None:
+        return False
+    raise ValueError(f"fused must be True, False or 'auto', got {flag!r}")

@@ -1,0 +1,166 @@
+"""K1 wrapper: build, argument checks, launch and launch count of the
+hand-written CUDA kernel ``csrc/vr_update.cu``.
+
+Replaces the Pallas TPU kernel ``_vr_update_kernel`` of
+``src/repro/kernels/vr_update/kernel.py`` (``vr_update_flat``). Its bound
+on an H100 is bytes: 5 reads and 2 writes of the (p, d) batch (x' and
+gtilde'; gbar' is a third write only with SAGA), so 7*p*d*itemsize over
+3.35 TB/s — 0.134 us at p=8, d=1000 in float64. A launch per inner step
+costs far more than that, so the convex epoch loop is launch-bound (see
+the source's note).
+
+The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
+package's own source, into ``build/torch_ext/`` at the root of the
+checkout, and loaded with ctypes through its plain C interface (no PyTorch
+headers, so the build takes seconds).
+
+Dispatch is on the tensors' device: CUDA tensors launch the kernel (or
+raise), CPU tensors run the plain version of ``ref.py``. There is no
+fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.vr_update import ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "vr_update.cu"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_ext"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
+
+# kernel launches since the last reset (the wrapper adds one per launch)
+launches = 0
+
+_lib = None
+build_log = ""          # nvcc's output of the last build (ptxas -v lines)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("vr_update: no CUDA toolkit found (nvcc); set "
+                           "CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> Path:
+    """Compile the kernel unless this source's library exists; returns
+    the shared library's path. The file name carries the hash of the
+    source and flags, so an edited source builds anew."""
+    global build_log
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"libvr_update_{digest[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(SOURCE)], capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"vr_update: nvcc failed ({proc.returncode}):\n"
+                           f"{build_log}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        ptr = ctypes.c_void_p
+        for fn in (lib.vr_update_f32, lib.vr_update_f64):
+            fn.argtypes = [ptr] * 8 + [ctypes.c_int64] + [ctypes.c_double] * 3 \
+                + [ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [ptr]
+            fn.restype = ctypes.c_int
+        lib.vr_update_error_string.argtypes = [ctypes.c_int]
+        lib.vr_update_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(x, g, g_old, gbar, gtilde):
+    ts = (x, g, g_old, gbar, gtilde)
+    names = ("x", "g", "g_old", "gbar", "gtilde")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"vr_update: dtype must be float32 or float64, got "
+                        f"{x.dtype}")
+    for name, t in zip(names, ts):
+        if t.device != x.device:
+            raise ValueError(f"vr_update: {name} is on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"vr_update: {name} is {t.dtype}, x is "
+                            f"{x.dtype}")
+        if t.shape != x.shape:
+            raise ValueError(f"vr_update: {name} has shape "
+                             f"{tuple(t.shape)}, x {tuple(x.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"vr_update: {name} is not contiguous")
+
+
+def vr_update(x, g, g_old, gbar, gtilde, *, eta: float, m: int,
+              saga: bool = False, decay: float = 0.0, prox=None,
+              inplace: bool = False):
+    """The fused VR update of a (p, d) batch (any shape, the same for all
+    five operands); returns (x', table', gtilde', gbar') — see
+    ``ref.vr_update_ref`` for the arithmetic.
+
+    ``prox`` is an elementwise :class:`repro_torch.prox.operators.ProxSpec`
+    (l1, elasticnet, box) or None. table' is ``g`` itself (table' = g),
+    and without SAGA gbar' is ``gbar`` itself (gbar' = gbar); the kernel
+    stores neither. ``inplace=True`` writes x', gtilde' (and gbar' with
+    SAGA) into ``x``, ``gtilde`` and ``gbar``, so a step allocates
+    nothing; otherwise those outputs are new tensors.
+    """
+    global launches
+    _check(x, g, g_old, gbar, gtilde)
+    if x.device.type == "cpu":
+        xo, tbl, gto, gbo = ref.vr_update_ref(
+            x, g, g_old, gbar, gtilde, eta=eta, m=m, saga=saga, decay=decay,
+            prox=prox)
+        if not inplace:
+            return xo, tbl, gto, gbo
+        x.copy_(xo)
+        gtilde.copy_(gto)
+        if gbo is not gbar:
+            gbar.copy_(gbo)
+        return x, g, gtilde, gbar
+    if x.device.type != "cuda":
+        raise ValueError(f"vr_update runs on CUDA or CPU tensors, got "
+                         f"{x.device}")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"vr_update: x is on {x.device}, the current CUDA "
+                         f"device is {torch.cuda.current_device()}")
+    if inplace:
+        x_out, gtilde_out, gbar_out = x, gtilde, gbar
+    else:
+        x_out, gtilde_out = torch.empty_like(x), torch.empty_like(gtilde)
+        gbar_out = torch.empty_like(gbar) if saga else gbar
+    kind, c1, c2 = ref.epilogue_constants(prox, eta)
+    lib = _load()
+    fn = lib.vr_update_f64 if x.dtype == torch.float64 else lib.vr_update_f32
+    err = fn(x.data_ptr(), g.data_ptr(), g_old.data_ptr(), gbar.data_ptr(),
+             gtilde.data_ptr(), x_out.data_ptr(), gtilde_out.data_ptr(),
+             gbar_out.data_ptr(), x.numel(),
+             eta, 1.0 / m, 1.0 - eta * decay, int(saga), kind, c1, c2,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"vr_update: launch failed: "
+                           f"{lib.vr_update_error_string(err).decode()}")
+    launches += 1
+    return x_out, g, gtilde_out, gbar_out
