@@ -8,14 +8,26 @@ Phases, each of which raises on failure:
 
   1. device: name, compute capability (must be 9.0), name and power limit
      as nvidia-smi reports them;
-  2. build: compiles the hand-written CUDA kernel ``vr_update`` from the
-     checkout's sources (nvcc, sm_90a), timed;
-  3. kernel against its plain PyTorch version on the card, at the main
-     path's shapes (8, 1000) and (1, 90), float64 and float32, SAGA off
-     and on, decay 0 and 2e-4, prox none / l1 / elasticnet / box:
-     largest absolute error <= 1e-12 in float64, <= 1e-6 of the largest
-     magnitude in float32;
-  4. main path, float64, through ``repro_torch.solve`` with fused=True:
+  2. build: compiles the hand-written CUDA kernels ``vr_update`` (K1),
+     ``rmsnorm`` (K2) and ``flash_attention`` (K3) from the checkout's
+     sources, one nvcc each, all started together (sm_90a), timed;
+  3. each kernel against its plain PyTorch version on the card. K1 at the
+     convex path's shapes (8, 1000) and (1, 90), float64 and float32,
+     SAGA off and on, decay 0 and 2e-4, prox none / l1 / elasticnet /
+     box: largest absolute error <= 1e-12 in float64, <= 1e-6 of the
+     largest magnitude in float32; and at the LM steps' shapes, (1,
+     1,556,113,920) and (2, N of ``qwen2-7b.reduced()``) float32 as the
+     centralvr step launches it, x' and gtilde' within 1e-6 of their
+     largest magnitude. K2 at 1024 x 3584 (the LM step's rows
+     and width) in bfloat16 and float32, a ragged row count and the
+     reduced width: error <= 1e-5 relative in float32, <= 1e-2 in
+     bfloat16 (one rounding of a value below 4). K3 at the LM step's
+     shape (S 1024, 28 query / 4 kv heads, hd 128), with a sliding
+     window, S not a multiple of the block, H = KV, and the reduced
+     config's shape: error <= 2e-2 (bf16 output, float32 sums in
+     another order);
+  4. convex main path, float64, through ``repro_torch.solve`` with
+     fused=True:
      CentralVR-Sync (Algorithm 2) at p=8 on the paper's §6.2
      ``dist-toy-logistic`` (n=5000 per worker, d=1000) and CentralVR
      (Algorithm 1) on ``millionsong`` (n=46371, d=90), 10 rounds each.
@@ -23,18 +35,35 @@ Phases, each of which raises on failure:
      steps; the trajectory must match the unfused run with the same
      visit orders to 1e-9; every rel must be finite and the last below
      the first;
-  5. the ``kernels`` line: per kernel its launches on the main path, its
+  5. LM main path: CentralVR training of the Qwen2-7B-width model cut to
+     2 layers (1,556,113,920 parameters, float32 masters, bfloat16
+     compute) through ``train.step.make_epoch_runner(fused=True)`` at
+     W=1, M=2, seq 1024, global batch 2, microbatch 1, remat "block": 2
+     epochs (4 steps), then the same run unfused from the same seed, one
+     after the other (the two states do not fit together). Every loss
+     must be finite; fused and unfused losses must agree to 2**-7
+     relative (two bf16 ulps), and the params' updates over the run, on
+     2**20 sampled coordinates, to 5% in norm. Launches per step must be
+     exactly K1 1, K2 (2L + 1 + 2L) * A = 18, K3 (L + L) * A = 8 (the
+     recompute under remat relaunches K2 and K3). Each run then trains
+     10 more epochs, each timed, for its steps/s (median, least, most).
+     Then W=2 at ``qwen2-7b.reduced()``, fused against unfused, held the
+     same way;
+  6. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
-     back-to-back calls at the Algorithm-2 shape), its bound on this card
-     and its largest error against the plain version.
+     back-to-back calls at the main path's shape), its bound on this
+     card, the time of the one PyTorch call that computes the same
+     function where there is one (``F.rms_norm``, ``F.scaled_dot_product_
+     attention``; timed as a yardstick only) and its largest error
+     against the plain version.
 
-With ``--profile`` it then traces 2000 fused inner steps of each path
-with ``torch.profiler`` and prints the device time per step, the device
-busy share against the same steps run untraced, and the kernels that
-take the device time.
+With ``--profile`` it then traces 2000 fused inner steps of each convex
+path and one fused epoch of the full-width LM with ``torch.profiler`` and
+prints the device time per step, the device busy share against the same
+steps run untraced, and the kernels that take the device time.
 
 TF32 is off for matrix products and convolutions, so float32 products
-are full float32 (the main path runs in float64 anyway).
+are full float32 (the convex path runs in float64, the LM in bfloat16).
 
 Without a CUDA device it exits with status 1 and prints no result. The
 last line of its output is ``{"ok": true, "device": {...}}``.
@@ -48,10 +77,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor-core
-# FLOP/s by type
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core FLOP/s
+# by type, and dense bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bf16_tensor": 989e12}
 # operations per element of the main path's launch (saga off, no prox):
 # v = g - g_old + gbar (2), x*scale - eta*v (3), gtilde + g*inv_m (2)
 VR_OPS_PER_ELEMENT = 7
@@ -60,6 +89,13 @@ VR_OPS_PER_ELEMENT = 7
 # table' is g itself)
 VR_STREAMS = 7
 ROUNDS = 10
+# RMSNorm: x*x, the sum, *r, *scale per element (float32 arithmetic)
+RMS_OPS_PER_ELEMENT = 4
+LM_EPOCHS = 2
+LM_TIMING_EPOCHS = 10           # more epochs after the agreement check, timed
+LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
+LOSS_RTOL = 2.0 ** -7           # two bf16 ulps
+UPDATE_RTOL = 0.05
 
 
 def log(*args):
@@ -84,16 +120,29 @@ def phase_device(torch):
     return smi
 
 
-def phase_build(vr_kernel):
+def phase_build(kernels):
+    """Build every kernel, one nvcc each, all started together."""
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
-    lib = vr_kernel.build()
-    vr_kernel._load()
+    libs = build.build(*(k.SOURCE for k in kernels.values()))
+    for k in kernels.values():
+        k._load()
     dt = time.perf_counter() - t0
-    log(f"[build] vr_update: {lib.name} in {dt:.2f} s")
-    for line in vr_kernel.build_log.splitlines():
-        if "ptxas" in line:
-            log(f"[build]   {line.strip()}")
+    log(f"[build] {', '.join(lib.name for lib in libs)} in {dt:.2f} s")
+    for name, out in build.logs.items():
+        for line in out.splitlines():
+            if "ptxas" in line and ("Used" in line or "spill" in line):
+                log(f"[build]   {name}: {line.strip()}")
     return dt
+
+
+def reset_counts(kernels):
+    for k in kernels.values():
+        k.reset_launches()
+
+
+def read_counts(kernels):
+    return {name: k.launches for name, k in kernels.items()}
 
 
 def phase_compare(torch, np, vr_kernel, vr_ref, proxops):
@@ -136,7 +185,56 @@ def phase_compare(torch, np, vr_kernel, vr_ref, proxops):
     return worst
 
 
-def drive(torch, solve, spec_kw, cfg, orders, vr_kernel, label):
+def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for rows, d, dt, sdt in ((1024, 3584, torch.bfloat16, torch.bfloat16),
+                             (1024, 3584, torch.float32, torch.float32),
+                             (37, 3584, torch.bfloat16, torch.float32),
+                             (512, 128, torch.bfloat16, torch.bfloat16)):
+        x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+        s = torch.randn(d, generator=g, device="cuda").to(sdt)
+        y = rms_kernel.rmsnorm(x, s)
+        torch.cuda.synchronize()
+        want = rms_ref.rmsnorm_ref(x, s).float()
+        err = (y.float() - want).abs().max().item()
+        tol = (1e-5 if dt == torch.float32 else 1e-2) * max(
+            1.0, want.abs().max().item())
+        log(f"[compare] rmsnorm ({rows}, {d}) {dt} scale {sdt}: max abs err "
+            f"{err!r} (tolerance {tol!r})")
+        if not err <= tol:
+            raise AssertionError(f"rmsnorm ({rows}, {d}) {dt}: {err} > {tol}")
+        if dt == torch.bfloat16 and rows == 1024:
+            worst = max(worst, err)
+    return worst
+
+
+def phase_compare_flash(torch, fa_kernel, fa_ref):
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for B, S, H, KV, hd, win in ((1, 1024, 28, 4, 128, None),
+                                 (1, 1024, 28, 4, 128, 200),
+                                 (2, 200, 4, 2, 32, None),
+                                 (1, 256, 4, 4, 64, None),
+                                 (1, 1024, 4, 2, 32, None),
+                                 (1, 100, 4, 2, 32, 16)):
+        q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16) for n in (H, KV, KV))
+        out = fa_kernel.flash_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        err = (out.float() - fa_ref.flash_attention_ref(
+            q, k, v, window=win).float()).abs().max().item()
+        log(f"[compare] flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+            f"window={win}: max abs err {err!r} (tolerance 0.02)")
+        if not err <= 2e-2:
+            raise AssertionError(f"flash_attention S={S} H={H} KV={KV} "
+                                 f"hd={hd} window={win}: {err} > 0.02")
+        if (S, H, hd, win) == (1024, 28, 128, None):
+            worst = err
+    return worst
+
+
+def drive(torch, solve, spec_kw, cfg, orders, kernels, label):
     """One main-path run with the kernel and its unfused twin on the same
     orders; returns the fused run's record."""
     import numpy as np
@@ -148,16 +246,19 @@ def drive(torch, solve, spec_kw, cfg, orders, vr_kernel, label):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    vr_kernel.reset_launches()
+    reset_counts(kernels)
     t0 = time.perf_counter()
     fused = solve(RunSpec(fused=True, **spec_kw), cfg, orders=orders)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = vr_kernel.launches
+    counts = read_counts(kernels)
+    launches = counts["vr_update"]
     peak = torch.cuda.max_memory_allocated()
     if launches != steps or fused.launches["vr_update"] != steps:
         raise AssertionError(f"{label}: vr_update launched {launches} times, "
                              f"expected one per inner step ({steps})")
+    if counts["rmsnorm"] or counts["flash_attention"]:
+        raise AssertionError(f"{label}: launched LM kernels: {counts}")
     t1 = time.perf_counter()
     unfused = solve(RunSpec(fused=False, **spec_kw), cfg, orders=orders)
     torch.cuda.synchronize()
@@ -182,7 +283,7 @@ def drive(torch, solve, spec_kw, cfg, orders, vr_kernel, label):
                 rels=[float(r) for r in rels], max_diff=diff)
 
 
-def phase_main_path(torch, vr_kernel):
+def phase_main_path(torch, kernels):
     from repro_torch import solve
     from repro_torch.configs.paper_convex import PRESETS
     from repro_torch.core import centralvr, distributed
@@ -195,12 +296,157 @@ def phase_main_path(torch, vr_kernel):
     cvr_orders = centralvr.draw_orders(gen, ms.n, ROUNDS)
     return [
         drive(torch, solve, dict(algo="centralvr_sync", p=dist.workers,
-                                 rounds=ROUNDS), dist, sync_orders, vr_kernel,
+                                 rounds=ROUNDS), dist, sync_orders, kernels,
               "centralvr_sync p=8 dist-toy-logistic (5000x1000 per worker)"),
         drive(torch, solve, dict(algo="centralvr", rounds=ROUNDS), ms,
-              cvr_orders, vr_kernel,
+              cvr_orders, kernels,
               "centralvr millionsong (46371x90)"),
     ]
+
+
+def lm_run(torch, cfg, tcfg, W, fused, kernels, sample):
+    """One LM run through the entry points a user calls: build the epoch
+    runner and the state (seeded), then drive LM_EPOCHS epochs with every
+    kernel's count set to 0 just before, and LM_TIMING_EPOCHS more, each
+    timed. Returns the run's record, with the losses, the sampled params
+    and their update moved to the host; the state is freed."""
+    import gc
+
+    from repro_torch.train import step as tstep
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run, meta = tstep.make_epoch_runner(cfg, tcfg, W, fused=fused)
+    state = tstep.init_train_state(cfg, tcfg, W)
+    p0 = state.params[:, sample].clone()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    losses, epoch_s = [], []
+    for _ in range(LM_EPOCHS):
+        t0 = time.perf_counter()
+        state, ls = run(state)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        losses.append(ls)
+    counts = read_counts(kernels)
+    p1 = state.params[:, sample]
+    checksum = float(state.params.sum(dtype=torch.float64))
+    timed_s = []
+    for _ in range(LM_TIMING_EPOCHS):
+        t0 = time.perf_counter()
+        state, _ = run(state)
+        torch.cuda.synchronize()
+        timed_s.append(time.perf_counter() - t0)
+    rec = dict(fused=fused, W=W, meta=meta, counts=counts,
+               losses=torch.cat(losses).double().cpu(),
+               delta=(p1 - p0).double().cpu(), p1=p1.double().cpu(),
+               checksum=checksum,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               epoch_s=epoch_s, timed_epoch_s=timed_s,
+               steps=LM_EPOCHS * meta["comm_every"])
+    del state, run, p0, p1, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def steps_per_s(rec):
+    """Median, least and most steps/s over a run's timed epochs."""
+    rates = sorted(rec["meta"]["comm_every"] / t
+                   for t in rec["timed_epoch_s"])
+    mid = len(rates) // 2
+    median = (rates[mid] if len(rates) % 2
+              else (rates[mid - 1] + rates[mid]) / 2)
+    return dict(median=median, min=rates[0], max=rates[-1])
+
+
+def lm_pair(torch, cfg, tcfg, W, kernels, label):
+    """The fused run and its unfused twin from the same seed, one after
+    the other; checks finiteness, launches per step and agreement."""
+    from repro_torch.models import model
+
+    n = model.ParamLayout(cfg).n
+    sample = torch.randint(0, n, (min(LM_SAMPLES, n),),
+                           generator=torch.Generator().manual_seed(0)
+                           ).to("cuda")
+    f = lm_run(torch, cfg, tcfg, W, True, kernels, sample)
+    u = lm_run(torch, cfg, tcfg, W, False, kernels, sample)
+    steps, A, L = f["steps"], f["meta"]["accum"], cfg.num_layers
+    want = {"vr_update": steps, "rmsnorm": (4 * L + 1) * A * W * steps,
+            "flash_attention": 2 * L * A * W * steps}
+    per_step = {k: v / steps for k, v in f["counts"].items()}
+    loss_err = float(((f["losses"] - u["losses"]).abs()
+                      / u["losses"].abs()).max())
+    upd_err = float((f["delta"] - u["delta"]).norm() / u["delta"].norm())
+    rate = {name: steps_per_s(r) for name, r in (("fused", f),
+                                                  ("unfused", u))}
+    log(f"[lm] {label}: fused losses {f['losses'].tolist()}")
+    log(f"[lm] {label}: unfused losses {u['losses'].tolist()}")
+    log(f"[lm] {label}: launches per step {per_step} (expected "
+        f"{ {k: v / steps for k, v in want.items()} }), unfused run "
+        f"{u['counts']}")
+    log(f"[lm] {label}: agreement epochs fused {f['epoch_s']} s, unfused "
+        f"{u['epoch_s']} s; timed epochs fused {f['timed_epoch_s']} s, "
+        f"unfused {u['timed_epoch_s']} s")
+    for name, r in rate.items():
+        log(f"[lm] {label}: {name} steps/s over {LM_TIMING_EPOCHS} epochs: "
+            f"median {r['median']!r}, min {r['min']!r}, max {r['max']!r}")
+    log(f"[lm] {label}: peak memory fused {f['peak_bytes'] / 1e9:.3f} GB, "
+        f"unfused {u['peak_bytes'] / 1e9:.3f} GB; param checksum fused "
+        f"{f['checksum']!r}, unfused {u['checksum']!r}")
+    log(f"[lm] {label}: max relative loss difference {loss_err!r} "
+        f"(tolerance {LOSS_RTOL!r}); update difference in norm {upd_err!r} "
+        f"(tolerance {UPDATE_RTOL!r}) on {len(sample)} sampled params")
+    for r in (f, u):
+        if not bool(torch.isfinite(r["losses"]).all()):
+            raise AssertionError(f"{label}: losses not finite: {r['losses']}")
+        if not bool(torch.isfinite(r["p1"]).all()):
+            raise AssertionError(f"{label}: params not finite")
+    if f["counts"] != want:
+        raise AssertionError(f"{label}: launches {f['counts']}, expected "
+                             f"{want}")
+    if any(u["counts"].values()):
+        raise AssertionError(f"{label}: the unfused run launched kernels: "
+                             f"{u['counts']}")
+    if not loss_err <= LOSS_RTOL:
+        raise AssertionError(f"{label}: fused and unfused losses differ by "
+                             f"{loss_err} (relative)")
+    if not upd_err <= UPDATE_RTOL:
+        raise AssertionError(f"{label}: fused and unfused updates differ by "
+                             f"{upd_err} (relative, in norm)")
+    return dict(label=label, counts=f["counts"], per_step=per_step,
+                steps=steps, steps_s=rate["fused"],
+                unfused_steps_s=rate["unfused"], peak_bytes=f["peak_bytes"],
+                unfused_peak_bytes=u["peak_bytes"],
+                losses=f["losses"].tolist(), loss_err=loss_err,
+                update_err=upd_err)
+
+
+def lm_configs():
+    """The LM main path's configurations: the Qwen2-7B width cut to 2
+    layers at W=1, and ``qwen2-7b.reduced()`` for the W=2 run."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+
+    full = dataclasses.replace(get_arch("qwen2-7b"), num_layers=2)
+    tcfg = TrainConfig(seq_len=1024, global_batch=2, microbatch=1,
+                       learning_rate=1e-2, optimizer="sgd", vr="centralvr",
+                       vr_table_size=2, local_epoch=1, remat="block", seed=0)
+    reduced = get_arch("qwen2-7b").reduced()
+    tred = dataclasses.replace(tcfg, seq_len=256, global_batch=4,
+                               learning_rate=0.1)
+    return (full, tcfg), (reduced, tred)
+
+
+def phase_lm(torch, kernels):
+    (full, tcfg), (reduced, tred) = lm_configs()
+    log(f"[lm] qwen2-7b width, 2 layers: {full.param_count()} params")
+    return [lm_pair(torch, full, tcfg, 1, kernels,
+                    "qwen2-7b width L=2 W=1 S=1024"),
+            lm_pair(torch, reduced, tred, 2, kernels,
+                    "qwen2-7b reduced W=2 S=256")]
 
 
 def graph_ms(torch, fn, calls=200, replays=20):
@@ -262,6 +508,132 @@ def time_vr_update(torch, np, vr_kernel, vr_ref, shape):
         f"(graph replay), {rec['eager_ms']!r} ms/launch from Python; plain "
         f"{rec['plain_ms']!r} ms (graph), {rec['plain_eager_ms']!r} ms "
         f"(Python); bound {rec['bound_ms']!r} ms ({rec['bound_by']})")
+    return rec
+
+
+def time_rmsnorm(torch, rms_kernel, rms_ref, rows=1024, d=3584):
+    x = torch.randn(rows, d, device="cuda").to(torch.bfloat16)
+    s = torch.randn(d, device="cuda").to(torch.bfloat16)
+    fns = {"ms": lambda: rms_kernel.rmsnorm(x, s),
+           "plain_ms": lambda: rms_ref.rmsnorm_ref(x, s),
+           "library_ms": lambda: torch.nn.functional.rms_norm(
+               x, (d,), s, 1e-6)}
+    rec = {k: graph_ms(torch, f) for k, f in fns.items()}
+    rec["eager_ms"] = eager_ms(torch, fns["ms"])
+    # x read once, y written once (scale is d elements)
+    bytes_s = (2 * rows * d + d) * 2 / PEAK_BYTES_S
+    ops_s = RMS_OPS_PER_ELEMENT * rows * d / PEAK_FLOPS["float32"]
+    rec.update(shape=[rows, d], dtype="bfloat16",
+               bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="bytes" if bytes_s >= ops_s else "operations")
+    log(f"[time] rmsnorm {rec['shape']} bf16: kernel {rec['ms']!r} ms/launch "
+        f"(graph replay), {rec['eager_ms']!r} ms from Python; plain "
+        f"{rec['plain_ms']!r} ms; F.rms_norm {rec['library_ms']!r} ms; bound "
+        f"{rec['bound_ms']!r} ms ({rec['bound_by']})")
+    return rec
+
+
+def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128):
+    q = torch.randn(B, S, H, hd, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, S, KV, hd, device="cuda").to(torch.bfloat16)
+    v = torch.randn(B, S, KV, hd, device="cuda").to(torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kernel = lambda: fa_kernel.flash_attention(q, k, v)        # noqa: E731
+    rec = {"ms": graph_ms(torch, kernel, calls=50, replays=10),
+           "plain_ms": graph_ms(torch, lambda: fa_ref.flash_attention_ref(
+               q, k, v), calls=2, replays=3),
+           "library_ms": graph_ms(
+               torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True),
+               calls=50, replays=10),
+           "eager_ms": eager_ms(torch, kernel, calls=200)}
+    # causal: the score and value products over the S(S+1)/2 visible pairs
+    flops = 2 * 2 * (S * (S + 1) // 2) * hd * H * B
+    bytes_s = (2 * q.numel() + k.numel() + v.numel()) * 2 / PEAK_BYTES_S
+    ops_s = flops / PEAK_FLOPS["bf16_tensor"]
+    rec.update(shape=[B, S, H, KV, hd], dtype="bfloat16", flops=flops,
+               bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="bytes" if bytes_s >= ops_s else "operations")
+    log(f"[time] flash_attention {rec['shape']} bf16: kernel {rec['ms']!r} "
+        f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python; "
+        f"plain {rec['plain_ms']!r} ms; SDPA {rec['library_ms']!r} ms; bound "
+        f"{rec['bound_ms']!r} ms ({rec['bound_by']}, {flops} flop)")
+    return rec
+
+
+def event_ms(torch, fn, calls):
+    """Device time per call of ``fn`` between two CUDA events, for calls
+    long enough (milliseconds) that launch overhead does not count."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def vr_update_lm(torch, vr_kernel, vr_ref, shape, timed):
+    """K1 at an LM step's shape: one launch over the (W, N) float32
+    buffers, as ``vr_wrapper.apply`` makes it for centralvr (x, g, g_old,
+    gbar, gtilde read; x' and gtilde' written in place). First held
+    against the plain version: the kernel writes into clones of x and
+    gtilde, the plain version reads the untouched inputs one slice at a
+    time (it is elementwise; whole, its temporaries would not fit beside
+    the inputs at full width), and x' and gtilde' must agree within 1e-6
+    of their largest magnitude. Then, if ``timed``, both are timed with
+    CUDA events."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ts = [torch.empty(shape, device="cuda").normal_(generator=gen)
+          for _ in range(5)]
+    x, g, g_old, gbar, gtilde = ts
+    kw = dict(eta=1e-2, m=2, saga=False)
+    x_out, gt_out = x.clone(), gtilde.clone()
+    vr_kernel.vr_update(x_out, g, g_old, gbar, gt_out, inplace=True, **kw)
+    torch.cuda.synchronize()
+    chunk = 1 << 26
+    err = {"x": 0.0, "gtilde": 0.0}
+    scale = {"x": 0.0, "gtilde": 0.0}
+    for w in range(shape[0]):
+        for lo in range(0, shape[1], chunk):
+            sl = (w, slice(lo, lo + chunk))
+            want_x, _, want_gt, _ = vr_ref.vr_update_ref(
+                *(t[sl] for t in ts), **kw)
+            for key, got, want in (("x", x_out[sl], want_x),
+                                   ("gtilde", gt_out[sl], want_gt)):
+                err[key] = max(err[key], (got - want).abs().max().item())
+                scale[key] = max(scale[key], want.abs().max().item())
+    del x_out, gt_out
+    torch.cuda.empty_cache()
+    rec = dict(shape=list(shape), dtype="float32",
+               max_abs_err=max(err.values()), max_abs_err_x=err["x"],
+               max_abs_err_gtilde=err["gtilde"])
+    log(f"[compare] vr_update {list(shape)} float32 (LM step): max abs err "
+        f"x' {err['x']!r}, gtilde' {err['gtilde']!r} (tolerance 1e-6 of "
+        f"the largest magnitude: {scale['x']!r}, {scale['gtilde']!r})")
+    for key in err:
+        if not err[key] <= 1e-6 * scale[key]:
+            raise AssertionError(f"vr_update {list(shape)} float32: {key}' "
+                                 f"max abs err {err[key]} > "
+                                 f"{1e-6 * scale[key]}")
+    if timed:
+        rec["plain_ms"] = event_ms(
+            torch, lambda: vr_ref.vr_update_ref(*ts, **kw), calls=3)
+        rec["ms"] = event_ms(torch, lambda: vr_kernel.vr_update(
+            *ts, inplace=True, **kw), calls=10)
+        n = shape[0] * shape[1]
+        bytes_s = VR_STREAMS * n * 4 / PEAK_BYTES_S
+        ops_s = VR_OPS_PER_ELEMENT * n / PEAK_FLOPS["float32"]
+        rec.update(bound_ms=max(bytes_s, ops_s) * 1e3,
+                   bound_by="bytes" if bytes_s >= ops_s else "operations")
+        log(f"[time] vr_update {list(shape)} float32: kernel {rec['ms']!r} "
+            f"ms/launch (CUDA events), plain {rec['plain_ms']!r} ms; bound "
+            f"{rec['bound_ms']!r} ms ({rec['bound_by']})")
+    del ts, x, g, g_old, gbar, gtilde
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -327,6 +699,47 @@ def phase_profile(torch, steps=2000):
                 f"/step  {key[:90]}")
 
 
+def phase_profile_lm(torch):
+    """Where a fused full-width LM step's time goes: one warm epoch, then
+    one epoch traced with ``torch.profiler``: device time per step, busy
+    share, and the kernels that take the device time."""
+    import gc
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import step as tstep
+
+    (cfg, tcfg), _ = lm_configs()
+    run, meta = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True)
+    state = tstep.init_train_state(cfg, tcfg, 1)
+    state, _ = run(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = run(state)
+    torch.cuda.synchronize()
+    steps = meta["comm_every"]
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = run(state)
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    device_ms = sum(r[0] for r in rows) / steps / 1e3
+    log(f"[profile] LM full width fused: {wall_ms:.3f} ms/step untraced, "
+        f"device {device_ms:.3f} ms/step, busy share "
+        f"{device_ms / wall_ms:.3f}, device ops "
+        f"{sum(r[1] for r in rows) / steps:.1f}/step")
+    for t, count, key in rows[:16]:
+        log(f"[profile]   {t / steps / 1e3:9.3f} ms/step  {count / steps:6.1f}"
+            f"/step  {key[:90]}")
+    del state, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -334,36 +747,79 @@ def main():
         return 1
     import numpy as np
 
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.kernels.vr_update import ref as vr_ref
+    from repro_torch.models import model
     from repro_torch.prox import operators as proxops
 
+    kernels = {"vr_update": vr_kernel, "rmsnorm": rms_kernel,
+               "flash_attention": fa_kernel}
     t_start = time.perf_counter()
     smi = phase_device(torch)
-    phase_build(vr_kernel)
+    phase_build(kernels)
     worst = phase_compare(torch, np, vr_kernel, vr_ref, proxops)
-    paths = phase_main_path(torch, vr_kernel)
-    launches = sum(p["launches"] for p in paths)
+    rms_err = phase_compare_rmsnorm(torch, rms_kernel, rms_ref)
+    fa_err = phase_compare_flash(torch, fa_kernel, fa_ref)
+    (full, _), (reduced, _) = lm_configs()
+    lm_shape = vr_update_lm(torch, vr_kernel, vr_ref,
+                            (1, model.ParamLayout(full).n), timed=True)
+    lm_red_shape = vr_update_lm(torch, vr_kernel, vr_ref,
+                                (2, model.ParamLayout(reduced).n),
+                                timed=False)
+    paths = phase_main_path(torch, kernels)
+    lm = phase_lm(torch, kernels)
     sync_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (8, 1000))
     cvr_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 90))
+    rms_time = time_rmsnorm(torch, rms_kernel, rms_ref)
+    fa_time = time_flash(torch, fa_kernel, fa_ref)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch)
+        phase_profile_lm(torch)
+    total = {name: sum(p["launches"] for p in paths) if name == "vr_update"
+             else 0 for name in kernels}
+    for run in lm:
+        for name, n in run["counts"].items():
+            total[name] += n
+    lm_paths = [{k: r[k] for k in ("label", "counts", "per_step", "steps",
+                                   "steps_s", "unfused_steps_s",
+                                   "peak_bytes",
+                                   "unfused_peak_bytes", "loss_err",
+                                   "update_err")} for r in lm]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(f"[card] {smi}")
     log(json.dumps({"kernels": [{
         "name": "vr_update", "route": "cuda",
         "source": "src/repro_torch/kernels/vr_update/csrc/vr_update.cu",
         "replaces": "src/repro/kernels/vr_update/kernel.py:64",
-        "launches": launches, "max_abs_err": worst["float64"],
+        "launches": total["vr_update"], "max_abs_err": worst["float64"],
         "ms": sync_shape["ms"], "plain_ms": sync_shape["plain_ms"],
         "bound_ms": sync_shape["bound_ms"],
         "bound_by": sync_shape["bound_by"], "library_ms": None,
         "shape": sync_shape["shape"], "dtype": "float64",
         "eager_ms": sync_shape["eager_ms"],
-        "other_shapes": [cvr_shape],
+        "other_shapes": [cvr_shape, lm_shape, lm_red_shape],
         "paths": [{k: p[k] for k in ("label", "launches", "steps", "wall_s",
                                      "unfused_wall_s", "peak_bytes")}
-                  for p in paths]}]}))
+                  for p in paths] + lm_paths}, {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:21",
+        "launches": total["rmsnorm"], "max_abs_err": rms_err,
+        **{k: rms_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape", "dtype",
+                                    "eager_ms")}}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:33",
+        "launches": total["flash_attention"], "max_abs_err": fa_err,
+        **{k: fa_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape", "dtype",
+                                   "eager_ms")}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,11 @@ array converts without this module importing jax): a ``Problem`` /
 ``ShardedProblem`` or a ``VRState`` / ``SyncState`` becomes the port's
 counterpart on ``device``.
 
+The reference's LM parameters (a tree of arrays, its layers stacked
+along a leading axis for its scan) become the port's tree, one entry per
+layer (:func:`lm_params_from_jax`), and its token blocks become int64
+tensors (:func:`tokens_from_jax`).
+
 The reference draws its visit orders inside its drivers with
 ``jax.random``; :func:`centralvr_orders` and :func:`sync_orders` replay
 its key splits and return the draws as numpy arrays, in the ``orders``
@@ -69,3 +74,42 @@ def sync_orders(random, key, p: int, ns: int, rounds: int):
     k_init, k_run = random.split(key)
     return perms(k_init), np.stack([perms(k)
                                     for k in random.split(k_run, rounds)])
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def lm_params_from_jax(params_np, cfg):
+    """The reference's LM params (``repro.models.model.init_params``'s
+    tree, leaves as anything ``np.asarray`` takes) as the port's tree of
+    CPU tensors: the scanned ``layers/stack`` (one dict per pattern
+    position, each leaf with a leading super-block axis) is unstacked
+    into one entry per layer, in layer order (super-block s, position j
+    is layer s*len(pattern) + j), followed by the ``layers/tail``
+    entries."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a))
+
+    stack, tail = params_np["layers"]["stack"], params_np["layers"]["tail"]
+    n_super = (len(np.asarray(stack[0]["norm1"]["scale"]))
+               if stack else 0)
+    layers = [_tree_map(lambda a: tensor(np.asarray(a)[s]), stack[j])
+              for s in range(n_super) for j in range(len(stack))]
+    layers += [_tree_map(tensor, t) for t in tail]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: the reference params hold "
+                         f"{len(layers)} layers, the config {cfg.num_layers}")
+    return {"embed": _tree_map(tensor, params_np["embed"]),
+            "layers": layers,
+            "final_norm": _tree_map(tensor, params_np["final_norm"]),
+            "head": _tree_map(tensor, params_np["head"])}
+
+
+def tokens_from_jax(tokens) -> torch.Tensor:
+    """A reference token block (e.g. ``synthetic.epoch_tokens``) as int64."""
+    return torch.from_numpy(np.asarray(tokens).astype(np.int64))

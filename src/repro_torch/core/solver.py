@@ -445,16 +445,6 @@ class RunResult:
 # solve
 # ---------------------------------------------------------------------------
 
-def _resolve_device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch.solve runs on the CUDA device and found none; pass "
-            "device='cpu' to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
-
-
 def _coerce_problem(spec: RunSpec, problem, device: torch.device):
     """Match the data topology to the algorithm — shard a flat Problem for
     the distributed algorithms, merge a ShardedProblem for the
@@ -511,11 +501,12 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     ``convex.auto_eta`` on the merged problem.
     """
     from repro_torch.core import convex, distributed
+    from repro_torch.kernels import resolve_device
     from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.obs import comms as obs_comms
 
     entry = REGISTRY[spec.algo]
-    device = _resolve_device(device)
+    device = resolve_device(device, "repro_torch.solve")
     problem = _coerce_problem(spec, problem, device)
     eta = spec.eta
     if eta is None:

@@ -1,11 +1,17 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version (``ref.py``), which the wrapper runs for tensors on the CPU:
 
-  vr_update/   fused CentralVR/SAGA update — CUDA C++ for sm_90a; replaces
-               the Pallas kernel ``repro/kernels/vr_update/kernel.py``
+  vr_update/        K1, fused CentralVR/SAGA update; replaces the Pallas
+                    kernel ``repro/kernels/vr_update/kernel.py``
+  rmsnorm/          K2, fused RMSNorm; replaces
+                    ``repro/kernels/rmsnorm/kernel.py``
+  flash_attention/  K3, causal GQA flash attention, forward; replaces
+                    ``repro/kernels/flash_attention/kernel.py``
 
+All three are CUDA C++ for sm_90a, built by ``build.py``.
 ``resolve_fused()`` is the one place that turns a ``fused=`` flag into a
-decision, so every caller agrees on the dispatch.
+decision, so every caller agrees on the dispatch, and
+``resolve_device()`` the one place that picks an entry point's device.
 """
 from __future__ import annotations
 
@@ -38,3 +44,15 @@ def resolve_fused(flag, device) -> bool:
     if flag is False or flag is None:
         return False
     raise ValueError(f"fused must be True, False or 'auto', got {flag!r}")
+
+
+def resolve_device(device, caller: str) -> torch.device:
+    """``device``, or the current CUDA device when it is None; raises when
+    there is no card — never a silent fall back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{caller} runs on the CUDA device and found none; pass "
+            "device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())

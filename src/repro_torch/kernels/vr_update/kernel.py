@@ -11,8 +11,8 @@ the source's note).
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
 package's own source, into ``build/torch_ext/`` at the root of the
-checkout, and loaded with ctypes through its plain C interface (no PyTorch
-headers, so the build takes seconds).
+checkout (``kernels/build.py``), and loaded with ctypes through its plain
+C interface (no PyTorch headers, so the build takes seconds).
 
 Dispatch is on the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run the plain version of ``ref.py``. There is no
@@ -21,26 +21,20 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.vr_update import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "vr_update.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_ext"
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
+NVCC_FLAGS = kbuild.NVCC_FLAGS
 
 # kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
 
 _lib = None
-build_log = ""          # nvcc's output of the last build (ptxas -v lines)
 
 
 def reset_launches() -> None:
@@ -48,40 +42,10 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("vr_update: no CUDA toolkit found (nvcc); set "
-                           "CUDA_HOME")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> Path:
-    """Compile the kernel unless this source's library exists; returns
-    the shared library's path. The file name carries the hash of the
-    source and flags, so an edited source builds anew."""
-    global build_log
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libvr_update_{digest[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"vr_update: nvcc failed ({proc.returncode}):\n"
-                           f"{build_log}")
-    os.replace(tmp, lib)
-    return lib
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(kbuild.build(SOURCE)[0]))
         ptr = ctypes.c_void_p
         for fn in (lib.vr_update_f32, lib.vr_update_f64):
             fn.argtypes = [ptr] * 8 + [ctypes.c_int64] + [ctypes.c_double] * 3 \

@@ -1,0 +1,151 @@
+"""The paper's technique as an LM-training feature: variance-reduced
+gradient corrections over the finite sum of M fixed microbatches — the
+port of ``repro/optim/vr_wrapper.py``.
+
+  * ``centralvr`` — Algorithms 1/2: per-index gradient table (M rows),
+    anchor gbar frozen over the epoch, refreshed from the running
+    accumulator gtilde at epoch end. 1 gradient per step.
+  * ``svrg``      — Algorithm 4: snapshot params + anchor; the correction
+    g(x) - g(y) + gbar needs a second gradient at the snapshot.
+  * ``saga``      — Algorithm 5: table + anchor updated every step.
+
+The state lives in flat float32 buffers shaped like the trainer's params,
+(W, N) for W workers: ``table`` is a list of M such buffers, one per row,
+so a row is contiguous for every worker at once. The functions update the
+state IN PLACE and return it. Writing the table row ``table[i] <- g``
+rebinds the row to the tensor ``g`` itself (no copy): ``g`` then belongs
+to the table, and the caller takes the row it replaced as its next
+gradient buffer (``train/step.py`` does).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import torch
+
+
+@dataclass
+class VRState:
+    table: List[torch.Tensor] = field(default_factory=list)  # M rows, or []
+    gbar: Optional[torch.Tensor] = None       # anchor
+    gtilde: Optional[torch.Tensor] = None     # running accumulator
+    snapshot: Optional[torch.Tensor] = None   # params snapshot (svrg)
+    idx: int = 0                              # microbatch index in [0, M)
+
+
+def init_vr(mode: str, params: torch.Tensor, M: int) -> Optional[VRState]:
+    """Zero state shaped like ``params`` (its dtype and device); svrg's
+    snapshot starts as a copy of the params."""
+    if mode == "none":
+        return None
+    zeros = lambda: torch.zeros_like(params)        # noqa: E731
+    if mode == "svrg":
+        return VRState(table=[], gbar=zeros(), gtilde=zeros(),
+                       snapshot=params.clone())
+    return VRState(table=[zeros() for _ in range(M)], gbar=zeros(),
+                   gtilde=zeros())
+
+
+def _roll(state: VRState):
+    """Epoch end: gbar <- gtilde, gtilde <- 0 (a swap, no copy)."""
+    state.gbar, state.gtilde = state.gtilde, state.gbar
+    state.gtilde.zero_()
+
+
+def correct(mode: str, state: VRState, g, M: int, *, g_snap=None,
+            params=None, idx=None):
+    """One VR step. Returns (corrected gradient v, state).
+
+    g: fresh gradient at the current params (for table modes it becomes
+    table row ``i``). g_snap: gradient of the SAME microbatch at the
+    snapshot (svrg only). params: current params (svrg's snapshot refresh
+    at epoch end, before the caller's update). idx: the scalar microbatch
+    index, as the reference's callers pass it; defaults to state.idx.
+    """
+    i = state.idx if idx is None else idx
+    at_epoch_end = i == M - 1
+
+    if mode == "svrg":
+        v = g - g_snap + state.gbar
+        state.gtilde.add_(g / M)
+        if at_epoch_end:
+            _roll(state)
+            state.snapshot.copy_(params)
+            state.idx = 0
+        else:
+            state.idx = i + 1
+        return v, state
+
+    old = state.table[i]
+    v = g - old + state.gbar
+    if mode == "saga":
+        state.gbar.add_((g - old) / M)
+        state.table[i] = g
+        state.idx = (i + 1) % M
+        return v, state
+
+    state.table[i] = g
+    state.gtilde.add_(g / M)
+    if at_epoch_end:
+        _roll(state)
+        state.idx = 0
+    else:
+        state.idx = i + 1
+    return v, state
+
+
+def apply(mode: str, state: VRState, g, M: int, *, lr: float, g_snap=None,
+          params=None, idx=None):
+    """Fused VR correction + SGD step: the arithmetic of ``correct``
+    followed by ``optimizers.sgd`` / ``apply_updates``, as ONE launch of
+    the K1 ``vr_update`` kernel over the flat buffers of all workers,
+    writing x' into ``params`` and gtilde' (and SAGA's gbar') in place.
+    The table row is then rebound to ``g``. Returns (params, state)."""
+    from repro_torch.kernels.vr_update import kernel as vr_kernel
+
+    i = state.idx if idx is None else idx
+    at_epoch_end = i == M - 1
+
+    if mode == "svrg":
+        if at_epoch_end:
+            # the snapshot takes the pre-update iterate, as in ``correct``
+            state.snapshot.copy_(params)
+        vr_kernel.vr_update(params, g, g_snap, state.gbar, state.gtilde,
+                            eta=lr, m=M, saga=False, inplace=True)
+        if at_epoch_end:
+            _roll(state)
+            state.idx = 0
+        else:
+            state.idx = i + 1
+        return params, state
+
+    vr_kernel.vr_update(params, g, state.table[i], state.gbar, state.gtilde,
+                        eta=lr, m=M, saga=(mode == "saga"), inplace=True)
+    state.table[i] = g
+    if mode == "saga":
+        # SAGA keeps no accumulator: drop the kernel's gtilde lane, as the
+        # reference does
+        state.gtilde.zero_()
+        state.idx = (i + 1) % M
+        return params, state
+    if at_epoch_end:
+        _roll(state)
+        state.idx = 0
+    else:
+        state.idx = i + 1
+    return params, state
+
+
+def grads_per_step(mode: str) -> int:
+    """Table 1: gradient evaluations per iteration."""
+    return 2 if mode == "svrg" else 1
+
+
+def storage_multiplier(mode: str, M: int) -> float:
+    """Extra param-sized buffers held by the VR state."""
+    if mode == "none":
+        return 0.0
+    if mode == "svrg":
+        return 3.0            # snapshot + gbar + gtilde
+    return float(M) + 2.0     # table + gbar + gtilde

@@ -1,5 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA card: the hand-written
-kernels against their plain versions, on the card.
+kernels (K1 vr_update, K2 rmsnorm, K3 flash_attention) against their plain
+versions, on the card, and the fused trainer's refusal to fall back when a
+kernel does not build.
 
 Run them on a machine with a Hopper card (this file imports no jax, and
 ``--noconftest`` skips the suite's jax set-up):
@@ -67,3 +69,83 @@ def test_vr_update_kernel_stores_only_what_changes(device, saga):
     assert all(h is t for h, t in zip(inplace, (ts[0], ts[1], ts[4], ts[3])))
     for w, h, i in zip(want, got, inplace):
         assert torch.equal(h, w) and torch.equal(i, w)
+
+
+# ---------------------------------------------------------------------------
+# K2 RMSNorm and K3 flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d,dtype,sdtype", [
+    (1024, 3584, torch.bfloat16, torch.bfloat16),   # the slice's shape
+    (1024, 3584, torch.float32, torch.float32),
+    (37, 3584, torch.bfloat16, torch.float32),      # ragged rows, f32 scale
+    (5, 128, torch.bfloat16, torch.bfloat16),
+])
+def test_rmsnorm_kernel_matches_plain(device, rows, d, dtype, sdtype):
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(rows, d, generator=g, device=device).to(dtype)
+    s = torch.randn(d, generator=g, device=device).to(sdtype)
+    before = rms_kernel.launches
+    y = rms_kernel.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rms_kernel.launches == before + 1
+    want = rms_ref.rmsnorm_ref(x, s)
+    # float32: summation order only; bf16: one rounding of the output
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (1, 1024, 28, 4, 128, None),    # the slice's shape
+    (1, 1024, 28, 4, 128, 200),     # sliding window
+    (2, 200, 4, 2, 32, None),       # S not a multiple of the block
+    (1, 256, 4, 4, 64, None),       # H = KV, no grouping
+    (1, 100, 4, 2, 32, 16),
+])
+def test_flash_kernel_matches_plain(device, B, S, H, KV, hd, window):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=device)
+               .to(torch.bfloat16) for n in (H, KV, KV))
+    before = fa_kernel.launches
+    out = fa_kernel.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1
+    want = fa_ref.flash_attention_ref(q, k, v, window=window)
+    # bf16 output, float32 sums in another order: about one bf16 ulp
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_fused_step_raises_when_a_kernel_does_not_build(device,
+                                                        monkeypatch,
+                                                        tmp_path):
+    """fused=True on the card launches the kernels or raises: a failed
+    build is an error, never a fall back to the plain versions."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.train import step as tstep
+
+    bad = tmp_path / "rmsnorm_broken.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(rms_kernel, "SOURCE", bad)
+    monkeypatch.setattr(rms_kernel, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    cfg = get_arch("qwen2-7b").reduced()
+    tcfg = TrainConfig(seq_len=64, global_batch=2, microbatch=1,
+                       optimizer="sgd", learning_rate=0.1, vr="centralvr",
+                       vr_table_size=2)
+    run, meta = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True,
+                                        device=device)
+    state = tstep.init_train_state(cfg, tcfg, 1, device=device)
+    before = rms_kernel.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        run(state)
+    assert rms_kernel.launches == before
+    assert meta["fused"] is True and dataclasses.is_dataclass(state)
