@@ -9,8 +9,9 @@ Phases, each of which raises on failure:
   1. device: name, compute capability (must be 9.0), name and power limit
      as nvidia-smi reports them;
   2. build: compiles the hand-written CUDA kernels ``vr_update`` (K1),
-     ``rmsnorm`` (K2) and ``flash_attention`` (K3) from the checkout's
-     sources, one nvcc each, all started together (sm_90a), timed;
+     ``rmsnorm`` (K2), ``flash_attention`` (K3) and ``ssd_scan`` (K4) from
+     the checkout's sources, one nvcc each, all started together
+     (sm_90a), timed;
   3. each kernel against its plain PyTorch version on the card. K1 at the
      convex path's shapes (8, 1000) and (1, 90), float64 and float32,
      SAGA off and on, decay 0 and 2e-4, prox none / l1 / elasticnet /
@@ -25,7 +26,14 @@ Phases, each of which raises on failure:
      shape (S 1024, 28 query / 4 kv heads, hd 128), with a sliding
      window, S not a multiple of the block, H = KV, and the reduced
      config's shape: error <= 2e-2 (bf16 output, float32 sums in
-     another order);
+     another order); and K3 in float32 at the LM step's shape and in
+     bfloat16 at hd 256 (recurrentgemma-2b's 10 / 1 heads): <= 1e-4 in
+     float32, 2e-2 in bf16. K1's bfloat16 lane (bf16 state, float32 g,
+     g_old bf16 or float32) at (2, 2**20): <= one bf16 ulp of the largest
+     magnitude. K4 at Mamba2-130M's training shape (B 4, S 2048, 24 heads,
+     P 64, N 128, chunk 64), at S 2000 and at the reduced config's shape
+     (P 16, N 16, chunk 8): <= 1e-4 absolute and relative, the reference's
+     kernel tolerance;
   4. convex main path, float64, through ``repro_torch.solve`` with
      fused=True:
      CentralVR-Sync (Algorithm 2) at p=8 on the paper's §6.2
@@ -48,19 +56,26 @@ Phases, each of which raises on failure:
      recompute under remat relaunches K2 and K3). Each run then trains
      10 more epochs, each timed, for its steps/s (median, least, most).
      Then W=2 at ``qwen2-7b.reduced()``, fused against unfused, held the
-     same way;
+     same way. Then Mamba2-130M at its full published width and depth (24
+     SSD blocks, d 768, state 128, vocab 50280, tied head; 128,983,488
+     parameters) at W=2, M=2, seq 2048, global batch 16, microbatch 4
+     (A = 2), the same gates, with launches per step K1 1, K2
+     (L + 1 + L) * A * W = 196, K4 (L + L) * A * W = 192; and W=2 at
+     ``mamba2-130m.reduced()``;
   6. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape), its bound on this
      card, the time of the one PyTorch call that computes the same
      function where there is one (``F.rms_norm``, ``F.scaled_dot_product_
-     attention``; timed as a yardstick only) and its largest error
-     against the plain version.
+     attention``; timed as a yardstick only; none for K1 and K4) and its
+     largest error against the plain version.
 
 With ``--profile`` it then traces 2000 fused inner steps of each convex
-path and one fused epoch of the full-width LM with ``torch.profiler`` and
-prints the device time per step, the device busy share against the same
-steps run untraced, and the kernels that take the device time.
+path and one fused epoch of each full-width LM (Qwen2 width, Mamba2-130M,
+and Mamba2-130M unfused) with ``torch.profiler`` and prints the device
+time per step, the device busy share against the same steps run
+untraced, the kernels that take the device time, and the backward's
+device time by autograd node.
 
 TF32 is off for matrix products and convolutions, so float32 products
 are full float32 (the convex path runs in float64, the LM in bfloat16).
@@ -96,6 +111,7 @@ LM_TIMING_EPOCHS = 10           # more epochs after the agreement check, timed
 LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
 LOSS_RTOL = 2.0 ** -7           # two bf16 ulps
 UPDATE_RTOL = 0.05
+SSD_TOL = 1e-4                  # the reference's kernel tolerance
 
 
 def log(*args):
@@ -234,6 +250,116 @@ def phase_compare_flash(torch, fa_kernel, fa_ref):
     return worst
 
 
+def phase_compare_flash_repaired(torch, fa_kernel, fa_ref):
+    """K3 in float32 at the Qwen2 slice's shape and in bfloat16 at hd 256;
+    returns the largest error of each."""
+    worst = {}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for B, S, H, KV, hd, win, dt, tol in (
+            (1, 1024, 28, 4, 128, None, torch.float32, 1e-4),
+            (1, 300, 4, 1, 256, 64, torch.float32, 1e-4),
+            (1, 1024, 10, 1, 256, None, torch.bfloat16, 2e-2),
+            (1, 200, 4, 2, 256, 16, torch.bfloat16, 2e-2)):
+        q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
+                   .to(dt) for n in (H, KV, KV))
+        out = fa_kernel.flash_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        want = fa_ref.flash_attention_ref(q, k, v, window=win).float()
+        diff = (out.float() - want).abs()
+        err = diff.max().item()
+        excess = (diff - tol * (1.0 + want.abs())).max().item()
+        key = str(dt).split(".")[-1]
+        log(f"[compare] flash_attention {key} B={B} S={S} H={H} KV={KV} "
+            f"hd={hd} window={win}: max abs err {err!r} (tolerance {tol} "
+            f"abs and relative)")
+        if not excess <= 0:
+            raise AssertionError(f"flash_attention {key} hd={hd} S={S}: "
+                                 f"error above {tol} abs + rel by {excess}")
+        if win is None:
+            worst[f"{key}_hd{hd}"] = err
+    return worst
+
+
+def phase_compare_vr_bf16(torch, vr_kernel, vr_ref):
+    """K1's bfloat16 lane: bf16 state, float32 g, g_old bf16 (a table row)
+    or float32 (SVRG's snapshot gradient), SAGA off and on."""
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shape = (2, 1 << 20)
+    for old_dt in (torch.bfloat16, torch.float32):
+        for saga in (False, True):
+            x, gbar, gtilde = (torch.randn(shape, generator=g, device="cuda")
+                               .to(torch.bfloat16) for _ in range(3))
+            gf = torch.randn(shape, generator=g, device="cuda")
+            g_old = torch.randn(shape, generator=g, device="cuda").to(old_dt)
+            kw = dict(eta=0.1, m=2, saga=saga)
+            got = vr_kernel.vr_update(x, gf, g_old, gbar, gtilde, **kw)
+            torch.cuda.synchronize()
+            want = vr_ref.vr_update_ref(x, gf, g_old, gbar, gtilde, **kw)
+            for w, h in zip(want, got):
+                err = (h.float() - w.float()).abs().max().item()
+                bound = 2.0 ** -8 * w.float().abs().max().item()
+                if not err <= bound:
+                    raise AssertionError(f"vr_update bf16 lane g_old "
+                                         f"{old_dt} saga={saga}: {err} > "
+                                         f"{bound}")
+                worst = max(worst, err)
+    log(f"[compare] vr_update bf16 lane {list(shape)} (g_old bf16 / f32, "
+        f"saga off / on): max abs err {worst!r} (tolerance one bf16 ulp of "
+        f"the largest magnitude)")
+    return worst
+
+
+def ssd_inputs(torch, B, S, H, P, N, seed):
+    """Inputs of the scan as the block makes them: x, dt = softplus(.),
+    A_log = log(1..H), B and C."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device="cuda"))
+    A_log = torch.arange(1, H + 1, device="cuda", dtype=torch.float32).log()
+    Bc = torch.randn(B, S, N, generator=g, device="cuda")
+    Cc = torch.randn(B, S, N, generator=g, device="cuda")
+    return x, dt, A_log, Bc, Cc
+
+
+def ssd_plain(torch, ssd_ref, x, dt, A_log, Bc, Cc, chunk):
+    """K4's flat plain version on the model-layout inputs."""
+    B, S, H, P = x.shape
+    la = -torch.exp(A_log)[None, None, :] * dt
+    y = ssd_ref.ssd_scan_ref(
+        la.transpose(1, 2).reshape(B * H, S),
+        (x * dt[..., None]).transpose(1, 2).reshape(B * H, S, P), Bc, Cc,
+        chunk=chunk)
+    return y.reshape(B, H, S, P).transpose(1, 2)
+
+
+def phase_compare_ssd(torch, ssd_kernel, ssd_ref):
+    """K4 (the model-layout entry the block calls) against its plain
+    version: at Mamba2-130M's training shape, at a ragged S, and at the
+    reduced config's shape; returns the largest error at the first."""
+    worst = None
+    for i, (B, S, H, P, N, Q) in enumerate(((4, 2048, 24, 64, 128, 64),
+                                            (4, 2000, 24, 64, 128, 64),
+                                            (4, 256, 16, 16, 16, 8))):
+        ins = ssd_inputs(torch, B, S, H, P, N, seed=10 + i)
+        y = ssd_kernel.ssd_scan(*ins, chunk=Q)
+        torch.cuda.synchronize()
+        want = ssd_plain(torch, ssd_ref, *ins, Q)
+        err = (y - want).abs()
+        excess = (err - SSD_TOL * (1.0 + want.abs())).max().item()
+        log(f"[compare] ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={Q}: "
+            f"max abs err {err.max().item()!r}, largest |y| "
+            f"{want.abs().max().item()!r} (tolerance {SSD_TOL} abs and "
+            f"relative)")
+        if not excess <= 0:
+            raise AssertionError(f"ssd_scan S={S} P={P} N={N}: error above "
+                                 f"{SSD_TOL} abs + rel by {excess}")
+        if worst is None:
+            worst = err.max().item()
+    return worst
+
+
 def drive(torch, solve, spec_kw, cfg, orders, kernels, label):
     """One main-path run with the kernel and its unfused twin on the same
     orders; returns the fused run's record."""
@@ -257,7 +383,7 @@ def drive(torch, solve, spec_kw, cfg, orders, kernels, label):
     if launches != steps or fused.launches["vr_update"] != steps:
         raise AssertionError(f"{label}: vr_update launched {launches} times, "
                              f"expected one per inner step ({steps})")
-    if counts["rmsnorm"] or counts["flash_attention"]:
+    if any(n for name, n in counts.items() if name != "vr_update"):
         raise AssertionError(f"{label}: launched LM kernels: {counts}")
     t1 = time.perf_counter()
     unfused = solve(RunSpec(fused=False, **spec_kw), cfg, orders=orders)
@@ -372,9 +498,9 @@ def lm_pair(torch, cfg, tcfg, W, kernels, label):
                            ).to("cuda")
     f = lm_run(torch, cfg, tcfg, W, True, kernels, sample)
     u = lm_run(torch, cfg, tcfg, W, False, kernels, sample)
-    steps, A, L = f["steps"], f["meta"]["accum"], cfg.num_layers
-    want = {"vr_update": steps, "rmsnorm": (4 * L + 1) * A * W * steps,
-            "flash_attention": 2 * L * A * W * steps}
+    steps, A = f["steps"], f["meta"]["accum"]
+    want = {k: n * steps
+            for k, n in expected_launches(cfg, A, W).items()}
     per_step = {k: v / steps for k, v in f["counts"].items()}
     loss_err = float(((f["losses"] - u["losses"]).abs()
                       / u["losses"].abs()).max())
@@ -423,6 +549,21 @@ def lm_pair(torch, cfg, tcfg, W, kernels, label):
                 update_err=upd_err)
 
 
+def expected_launches(cfg, A, W):
+    """Launches per step of each kernel with fused=True and remat="block"
+    (L layers, A microbatches, W workers): the forward and the block's
+    recompute each launch K2 for every block norm (two per attn block, one
+    per ssm block) and K3 or K4 once per block, plus K2 once for the final
+    norm; K1 once."""
+    L = cfg.num_layers
+    ssm = cfg.family == "ssm"
+    norms = 1 if ssm else 2
+    return {"vr_update": 1,
+            "rmsnorm": (2 * norms * L + 1) * A * W,
+            "flash_attention": 0 if ssm else 2 * L * A * W,
+            "ssd_scan": 2 * L * A * W if ssm else 0}
+
+
 def lm_configs():
     """The LM main path's configurations: the Qwen2-7B width cut to 2
     layers at W=1, and ``qwen2-7b.reduced()`` for the W=2 run."""
@@ -440,13 +581,40 @@ def lm_configs():
     return (full, tcfg), (reduced, tred)
 
 
+def mamba_configs():
+    """Mamba2-130M at its full published width and depth (W=2, A=2), and
+    ``mamba2-130m.reduced()`` for a second W=2 run."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+
+    full = get_arch("mamba2-130m")
+    tcfg = TrainConfig(seq_len=2048, global_batch=16, microbatch=4,
+                       learning_rate=1e-2, optimizer="sgd", vr="centralvr",
+                       vr_table_size=2, local_epoch=1, remat="block", seed=0)
+    reduced = full.reduced()
+    tred = dataclasses.replace(tcfg, seq_len=256, global_batch=4,
+                               microbatch=1, learning_rate=0.1)
+    return (full, tcfg), (reduced, tred)
+
+
 def phase_lm(torch, kernels):
+    from repro_torch.models import model
+
     (full, tcfg), (reduced, tred) = lm_configs()
     log(f"[lm] qwen2-7b width, 2 layers: {full.param_count()} params")
-    return [lm_pair(torch, full, tcfg, 1, kernels,
+    runs = [lm_pair(torch, full, tcfg, 1, kernels,
                     "qwen2-7b width L=2 W=1 S=1024"),
             lm_pair(torch, reduced, tred, 2, kernels,
                     "qwen2-7b reduced W=2 S=256")]
+    (mfull, mtcfg), (mred, mtred) = mamba_configs()
+    log(f"[lm] mamba2-130m, full width and depth: "
+        f"{model.ParamLayout(mfull).n} params")
+    runs += [lm_pair(torch, mfull, mtcfg, 2, kernels,
+                     "mamba2-130m L=24 W=2 S=2048"),
+             lm_pair(torch, mred, mtred, 2, kernels,
+                     "mamba2-130m reduced W=2 S=256")]
+    return runs
 
 
 def graph_ms(torch, fn, calls=200, replays=20):
@@ -533,10 +701,12 @@ def time_rmsnorm(torch, rms_kernel, rms_ref, rows=1024, d=3584):
     return rec
 
 
-def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128):
-    q = torch.randn(B, S, H, hd, device="cuda").to(torch.bfloat16)
-    k = torch.randn(B, S, KV, hd, device="cuda").to(torch.bfloat16)
-    v = torch.randn(B, S, KV, hd, device="cuda").to(torch.bfloat16)
+def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128,
+               dtype="bfloat16"):
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, H, hd, device="cuda").to(dt)
+    k = torch.randn(B, S, KV, hd, device="cuda").to(dt)
+    v = torch.randn(B, S, KV, hd, device="cuda").to(dt)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     kernel = lambda: fa_kernel.flash_attention(q, k, v)        # noqa: E731
     rec = {"ms": graph_ms(torch, kernel, calls=50, replays=10),
@@ -547,17 +717,50 @@ def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128):
                    qt, kt, vt, is_causal=True, enable_gqa=True),
                calls=50, replays=10),
            "eager_ms": eager_ms(torch, kernel, calls=200)}
-    # causal: the score and value products over the S(S+1)/2 visible pairs
+    # causal: the score and value products over the S(S+1)/2 visible pairs;
+    # bf16 on the tensor cores, float32 outside them
     flops = 2 * 2 * (S * (S + 1) // 2) * hd * H * B
-    bytes_s = (2 * q.numel() + k.numel() + v.numel()) * 2 / PEAK_BYTES_S
-    ops_s = flops / PEAK_FLOPS["bf16_tensor"]
-    rec.update(shape=[B, S, H, KV, hd], dtype="bfloat16", flops=flops,
+    bytes_s = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+               / PEAK_BYTES_S)
+    ops_s = flops / PEAK_FLOPS["bf16_tensor" if dtype == "bfloat16"
+                               else "float32"]
+    rec.update(shape=[B, S, H, KV, hd], dtype=dtype, flops=flops,
                bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="bytes" if bytes_s >= ops_s else "operations")
-    log(f"[time] flash_attention {rec['shape']} bf16: kernel {rec['ms']!r} "
+    log(f"[time] flash_attention {rec['shape']} {dtype}: kernel {rec['ms']!r} "
         f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python; "
         f"plain {rec['plain_ms']!r} ms; SDPA {rec['library_ms']!r} ms; bound "
         f"{rec['bound_ms']!r} ms ({rec['bound_by']}, {flops} flop)")
+    return rec
+
+
+def time_ssd(torch, ssd_kernel, ssd_ref, B=4, S=2048, H=24, P=64, N=128,
+             Q=64):
+    """K4 at Mamba2-130M's training shape, as the block calls it (the
+    model-layout entry); plain version on the same inputs. The bound
+    counts the causal halves of C B^T and w x (the Q(Q+1)/2 visible
+    pairs), C h^T and the state update, in float32 outside the tensor
+    cores; the bytes are la, x, B, C read and y written once."""
+    ins = ssd_inputs(torch, B, S, H, P, N, seed=20)
+    kernel = lambda: ssd_kernel.ssd_scan(*ins, chunk=Q)        # noqa: E731
+    rec = {"ms": graph_ms(torch, kernel, calls=20, replays=10),
+           "plain_ms": graph_ms(torch, lambda: ssd_plain(
+               torch, ssd_ref, *ins, Q), calls=2, replays=3),
+           "eager_ms": eager_ms(torch, kernel, calls=100)}
+    nc = -(-S // Q)
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * B * H * nc * (pairs * (N + P) + 2 * Q * N * P)
+    nbytes = 4 * (B * S * H + 2 * B * S * H * P + 2 * B * S * N)
+    bytes_s = nbytes / PEAK_BYTES_S
+    ops_s = flops / PEAK_FLOPS["float32"]
+    rec.update(shape=[B, S, H, P, N, Q], dtype="float32", flops=flops,
+               bytes=nbytes, bound_ms=max(bytes_s, ops_s) * 1e3,
+               bound_by="bytes" if bytes_s >= ops_s else "operations",
+               library_ms=None)
+    log(f"[time] ssd_scan {rec['shape']} float32: kernel {rec['ms']!r} "
+        f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python; "
+        f"plain {rec['plain_ms']!r} ms; bound {rec['bound_ms']!r} ms "
+        f"({rec['bound_by']}, {flops} flop, {nbytes} bytes)")
     return rec
 
 
@@ -699,10 +902,11 @@ def phase_profile(torch, steps=2000):
                 f"/step  {key[:90]}")
 
 
-def phase_profile_lm(torch):
-    """Where a fused full-width LM step's time goes: one warm epoch, then
-    one epoch traced with ``torch.profiler``: device time per step, busy
-    share, and the kernels that take the device time."""
+def phase_profile_lm(torch, label, cfg, tcfg, W, fused=True):
+    """Where a full-width LM step's time goes: one warm epoch, then one
+    epoch traced with ``torch.profiler``: device time per step, busy
+    share, the kernels that take the device time, and the backward by
+    autograd node."""
     import gc
 
     from torch.autograd import DeviceType
@@ -710,9 +914,8 @@ def phase_profile_lm(torch):
 
     from repro_torch.train import step as tstep
 
-    (cfg, tcfg), _ = lm_configs()
-    run, meta = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True)
-    state = tstep.init_train_state(cfg, tcfg, 1)
+    run, meta = tstep.make_epoch_runner(cfg, tcfg, W, fused=fused)
+    state = tstep.init_train_state(cfg, tcfg, W)
     state, _ = run(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -728,13 +931,25 @@ def phase_profile_lm(torch):
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     device_ms = sum(r[0] for r in rows) / steps / 1e3
-    log(f"[profile] LM full width fused: {wall_ms:.3f} ms/step untraced, "
+    log(f"[profile] {label} {'fused' if fused else 'unfused'}: "
+        f"{wall_ms:.3f} ms/step untraced, "
         f"device {device_ms:.3f} ms/step, busy share "
         f"{device_ms / wall_ms:.3f}, device ops "
         f"{sum(r[1] for r in rows) / steps:.1f}/step")
     for t, count, key in rows[:16]:
         log(f"[profile]   {t / steps / 1e3:9.3f} ms/step  {count / steps:6.1f}"
             f"/step  {key[:90]}")
+    # the backward by autograd node: the device time of the kernels each
+    # node launched, its recompute under remat included (nodes overlap
+    # where one runs inside another)
+    nodes = sorted(((e.device_time_total, e.count, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU
+                    and e.key.startswith("autograd::engine::evaluate")),
+                   reverse=True)
+    for t, count, key in nodes[:8]:
+        log(f"[profile]   backward {t / steps / 1e3:9.3f} ms/step  "
+            f"{count / steps:6.1f}/step  {key.split(': ')[-1][:70]}")
     del state, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -751,19 +966,24 @@ def main():
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.kernels.vr_update import ref as vr_ref
     from repro_torch.models import model
     from repro_torch.prox import operators as proxops
 
     kernels = {"vr_update": vr_kernel, "rmsnorm": rms_kernel,
-               "flash_attention": fa_kernel}
+               "flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build(kernels)
     worst = phase_compare(torch, np, vr_kernel, vr_ref, proxops)
+    vr_bf16_err = phase_compare_vr_bf16(torch, vr_kernel, vr_ref)
     rms_err = phase_compare_rmsnorm(torch, rms_kernel, rms_ref)
     fa_err = phase_compare_flash(torch, fa_kernel, fa_ref)
+    fa_repaired_err = phase_compare_flash_repaired(torch, fa_kernel, fa_ref)
+    ssd_err = phase_compare_ssd(torch, ssd_kernel, ssd_ref)
     (full, _), (reduced, _) = lm_configs()
     lm_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                             (1, model.ParamLayout(full).n), timed=True)
@@ -776,9 +996,17 @@ def main():
     cvr_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 90))
     rms_time = time_rmsnorm(torch, rms_kernel, rms_ref)
     fa_time = time_flash(torch, fa_kernel, fa_ref)
+    fa_f32_time = time_flash(torch, fa_kernel, fa_ref, dtype="float32")
+    fa_hd256_time = time_flash(torch, fa_kernel, fa_ref, H=10, KV=1, hd=256)
+    ssd_time = time_ssd(torch, ssd_kernel, ssd_ref)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch)
-        phase_profile_lm(torch)
+        (qcfg, qtcfg), _ = lm_configs()
+        phase_profile_lm(torch, "qwen2-7b width L=2 W=1", qcfg, qtcfg, 1)
+        (mcfg, mtcfg), _ = mamba_configs()
+        for fused in (True, False):
+            phase_profile_lm(torch, "mamba2-130m L=24 W=2", mcfg, mtcfg, 2,
+                             fused=fused)
     total = {name: sum(p["launches"] for p in paths) if name == "vr_update"
              else 0 for name in kernels}
     for run in lm:
@@ -802,6 +1030,7 @@ def main():
         "shape": sync_shape["shape"], "dtype": "float64",
         "eager_ms": sync_shape["eager_ms"],
         "other_shapes": [cvr_shape, lm_shape, lm_red_shape],
+        "bf16_lane_max_abs_err": vr_bf16_err,
         "paths": [{k: p[k] for k in ("label", "launches", "steps", "wall_s",
                                      "unfused_wall_s", "peak_bytes")}
                   for p in paths] + lm_paths}, {
@@ -819,7 +1048,17 @@ def main():
         "launches": total["flash_attention"], "max_abs_err": fa_err,
         **{k: fa_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "shape", "dtype",
-                                   "eager_ms")}}]}))
+                                   "eager_ms")},
+        "other_shapes": [dict(r, max_abs_err=fa_repaired_err[key])
+                         for r, key in ((fa_f32_time, "float32_hd128"),
+                                        (fa_hd256_time, "bfloat16_hd256"))]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",
+        "launches": total["ssd_scan"], "max_abs_err": ssd_err,
+        **{k: ssd_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape", "dtype",
+                                    "eager_ms")}}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

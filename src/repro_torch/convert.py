@@ -93,7 +93,10 @@ def lm_params_from_jax(params_np, cfg):
     is layer s*len(pattern) + j), followed by the ``layers/tail``
     entries."""
     def tensor(a):
-        return torch.from_numpy(np.array(a))
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":   # through float32, which holds it
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(a)
 
     stack, tail = params_np["layers"]["stack"], params_np["layers"]["tail"]
     n_super = (len(np.asarray(stack[0]["norm1"]["scale"]))

@@ -7,8 +7,11 @@ version (``ref.py``), which the wrapper runs for tensors on the CPU:
                     ``repro/kernels/rmsnorm/kernel.py``
   flash_attention/  K3, causal GQA flash attention, forward; replaces
                     ``repro/kernels/flash_attention/kernel.py``
+  ssd_scan/         K4, Mamba2 SSD chunk scan, forward; replaces
+                    ``repro/kernels/ssd_scan/kernel.py``
 
-All three are CUDA C++ for sm_90a, built by ``build.py``.
+All four are CUDA C++ for sm_90a, built by ``build.py``. As in the
+reference, ``ssd_scan`` (the model-layout entry) is exported here lazily.
 ``resolve_fused()`` is the one place that turns a ``fused=`` flag into a
 decision, so every caller agrees on the dispatch, and
 ``resolve_device()`` the one place that picks an entry point's device.
@@ -16,6 +19,17 @@ decision, so every caller agrees on the dispatch, and
 from __future__ import annotations
 
 import torch
+
+_LAZY = {"ssd_scan": ("repro_torch.kernels.ssd_scan.kernel", "ssd_scan")}
+
+
+def __getattr__(name):
+    try:
+        mod_name, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(name) from None
+    import importlib
+    return getattr(importlib.import_module(mod_name), attr)
 
 
 def has_kernel_support(device) -> bool:

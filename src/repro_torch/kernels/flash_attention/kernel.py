@@ -5,14 +5,15 @@ Replaces the Pallas TPU kernel ``_flash_kernel`` of
 ``src/repro/kernels/flash_attention/kernel.py`` (``flash_attention``).
 Its bound on an H100 is operations: the causal half of QK^T and PV,
 2*2*(S^2/2)*hd*H flops per batch row over 989 TFLOP/s of dense bf16 —
-7.6 us at S = 1024, H = 28, hd = 128.
+7.6 us at S = 1024, H = 28, hd = 128 (in float32, over 67 TFLOP/s).
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_ext/`` (``kernels/build.py``) and loaded with ctypes. It
-takes bfloat16 q, k, v in the model's layout with head sizes 32, 64 and
-128. Dispatch is on the tensors' device: CUDA tensors launch the kernel
-(or raise), CPU tensors run the plain version of ``ref.py``. There is no
-fallback from one to the other.
+takes bfloat16 or float32 q, k, v in the model's layout with head sizes
+32, 64, 128 and 256 (every head size of the repo's configs); float32 runs
+without tensor cores, in full float32. Dispatch is on the tensors'
+device: CUDA tensors launch the kernel (or raise), CPU tensors run the
+plain version of ``ref.py``. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.flash_attention import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
+DTYPES = {torch.bfloat16: 0, torch.float32: 1}     # as the source numbers them
 
 # kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
@@ -46,7 +48,7 @@ def _load():
         lib = ctypes.CDLL(str(kbuild.build(SOURCE)[0]))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [ptr] * 4 + [i32] * 5 + [
-            ctypes.c_double, i32, ptr]
+            ctypes.c_double, i32, i32, ptr]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -78,6 +80,18 @@ def _check(q, k, v, window):
                             f"{q.dtype}")
 
 
+def check_supported(head_dim: int, dtype) -> None:
+    """Raise unless the kernel takes this head size and dtype on the card;
+    the fused trainer calls it when it is built, so a model the kernel
+    does not take is refused before its first step."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention: the kernel takes bfloat16 or "
+                        f"float32, got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head size {head_dim} is not one "
+                         f"of {HEAD_DIMS}")
+
+
 def flash_attention(q, k, v, *, window: Optional[int] = None):
     """Causal GQA attention: q (B, S, H, hd), k and v (B, S, KV, hd) ->
     (B, S, H, hd); query head h reads kv head h // (H // KV); scale
@@ -90,12 +104,7 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     B, S, H, hd = q.shape
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention: the kernel takes bfloat16, got "
-                        f"{q.dtype}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head size {hd} is not one of "
-                         f"{HEAD_DIMS}")
+    check_supported(hd, q.dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} must be contiguous "
@@ -109,7 +118,7 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
     lib = _load()
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], hd, 1.0 / math.sqrt(hd), window or 0,
+        k.shape[2], hd, 1.0 / math.sqrt(hd), window or 0, DTYPES[q.dtype],
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention: launch failed: "

@@ -47,7 +47,8 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(kbuild.build(SOURCE)[0]))
         ptr = ctypes.c_void_p
-        for fn in (lib.vr_update_f32, lib.vr_update_f64):
+        for fn in (lib.vr_update_f32, lib.vr_update_f64, lib.vr_update_bf16,
+                   lib.vr_update_bf16_f32old):
             fn.argtypes = [ptr] * 8 + [ctypes.c_int64] + [ctypes.c_double] * 3 \
                 + [ctypes.c_int] * 2 + [ctypes.c_double] * 2 + [ptr]
             fn.restype = ctypes.c_int
@@ -57,19 +58,33 @@ def _load():
     return _lib
 
 
+STATE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
+
+def grad_dtype(state_dtype):
+    """The dtype of the fresh gradient ``g`` for state of ``state_dtype``:
+    float32 beside bfloat16 state (the trainer accumulates in float32),
+    else the state's own."""
+    return torch.float32 if state_dtype == torch.bfloat16 else state_dtype
+
+
 def _check(x, g, g_old, gbar, gtilde):
     ts = (x, g, g_old, gbar, gtilde)
     names = ("x", "g", "g_old", "gbar", "gtilde")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"vr_update: dtype must be float32 or float64, got "
-                        f"{x.dtype}")
+    if x.dtype not in STATE_DTYPES:
+        raise TypeError(f"vr_update: dtype must be float32, float64 or "
+                        f"bfloat16, got {x.dtype}")
+    gdt = grad_dtype(x.dtype)
+    allowed = {"x": (x.dtype,), "gbar": (x.dtype,), "gtilde": (x.dtype,),
+               "g": (gdt,), "g_old": (x.dtype, gdt)}
     for name, t in zip(names, ts):
         if t.device != x.device:
             raise ValueError(f"vr_update: {name} is on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != x.dtype:
+        if t.dtype not in allowed[name]:
             raise TypeError(f"vr_update: {name} is {t.dtype}, x is "
-                            f"{x.dtype}")
+                            f"{x.dtype} (it must be one of "
+                            f"{allowed[name]})")
         if t.shape != x.shape:
             raise ValueError(f"vr_update: {name} has shape "
                              f"{tuple(t.shape)}, x {tuple(x.shape)}")
@@ -82,7 +97,9 @@ def vr_update(x, g, g_old, gbar, gtilde, *, eta: float, m: int,
               inplace: bool = False):
     """The fused VR update of a (p, d) batch (any shape, the same for all
     five operands); returns (x', table', gtilde', gbar') — see
-    ``ref.vr_update_ref`` for the arithmetic.
+    ``ref.vr_update_ref`` for the arithmetic. All five share one dtype
+    (float32 or float64), or the state is bfloat16 with a float32 ``g``
+    (and ``g_old`` bfloat16 or float32); the arithmetic is then float32.
 
     ``prox`` is an elementwise :class:`repro_torch.prox.operators.ProxSpec`
     (l1, elasticnet, box) or None. table' is ``g`` itself (table' = g),
@@ -117,7 +134,12 @@ def vr_update(x, g, g_old, gbar, gtilde, *, eta: float, m: int,
         gbar_out = torch.empty_like(gbar) if saga else gbar
     kind, c1, c2 = ref.epilogue_constants(prox, eta)
     lib = _load()
-    fn = lib.vr_update_f64 if x.dtype == torch.float64 else lib.vr_update_f32
+    if x.dtype == torch.bfloat16:
+        fn = (lib.vr_update_bf16 if g_old.dtype == torch.bfloat16
+              else lib.vr_update_bf16_f32old)
+    else:
+        fn = (lib.vr_update_f64 if x.dtype == torch.float64
+              else lib.vr_update_f32)
     err = fn(x.data_ptr(), g.data_ptr(), g_old.data_ptr(), gbar.data_ptr(),
              gtilde.data_ptr(), x_out.data_ptr(), gtilde_out.data_ptr(),
              gbar_out.data_ptr(), x.numel(),

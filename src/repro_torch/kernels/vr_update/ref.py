@@ -52,11 +52,16 @@ def vr_update_ref(x, g, g_old, gbar, gtilde, *, eta: float, m: int,
         table'  = g
         gtilde' = gtilde + g*(1/m)
         gbar'   = gbar + (g - g_old)*(1/m) if saga else gbar
-    """
+
+    computed in g's dtype (float32 for bfloat16 state), each result
+    rounded back to its operand's dtype, as the reference's flattening
+    wrapper casts around its float32 kernel."""
     inv_m = 1.0 / m
-    v = g - g_old + gbar
-    xn = x * (1.0 - eta * decay) - eta * v
+    c = g.dtype
+    xc, go, gb, gt = (t.to(c) for t in (x, g_old, gbar, gtilde))
+    v = g - go + gb
+    xn = xc * (1.0 - eta * decay) - eta * v
     xn = prox_epilogue(xn, *epilogue_constants(prox, eta))
-    gtilde_new = gtilde + g * inv_m
-    gbar_new = gbar + (g - g_old) * inv_m if saga else gbar
-    return xn, g, gtilde_new, gbar_new
+    gtilde_new = (gt + g * inv_m).to(gtilde.dtype)
+    gbar_new = ((gb + (g - go) * inv_m).to(gbar.dtype) if saga else gbar)
+    return xn.to(x.dtype), g, gtilde_new, gbar_new

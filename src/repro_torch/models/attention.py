@@ -25,14 +25,15 @@ def init_attn(cfg: ModelConfig, new):
     (KV, hd), as the reference lays them out (H = ``cfg.padded_heads``)."""
     d, KV, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
     H = cfg.padded_heads        # physical heads (>= logical num_heads)
-    # padded heads are drawn like the others (the reference zeroes them);
-    # either way ``_head_mask`` keeps them inert: their outputs never
-    # reach wo, and no gradient flows into their rows
+    # the padded heads' columns of wq and rows of wo start at zero, as the
+    # reference zeroes them; ``_head_mask`` keeps them inert: their
+    # outputs never reach wo, and no gradient flows into them
+    n = cfg.num_heads
     p = {
-        "wq": new((d, H, hd), layers.dense(d)),
+        "wq": new((d, H, hd), layers.dense(d, keep=(1, n))),
         "wk": new((d, KV, hd), layers.dense(d)),
         "wv": new((d, KV, hd), layers.dense(d)),
-        "wo": new((H, hd, d), layers.dense(H * hd)),
+        "wo": new((H, hd, d), layers.dense(H * hd, keep=(0, n))),
     }
     if cfg.qkv_bias:
         p["bq"] = new((H, hd), "zeros")

@@ -1,7 +1,8 @@
 """Process-global switch that routes the LM forward through the
 hand-written kernels: RMSNorm (``kernels/rmsnorm``) in
-``layers.apply_norm`` and flash attention (``kernels/flash_attention``)
-in ``attention.attend_train``.
+``layers.apply_norm``, flash attention (``kernels/flash_attention``) in
+``attention.attend_train`` and the SSD chunk scan (``kernels/ssd_scan``)
+in ``ssm.apply_ssm_train``.
 
 The port's counterpart of ``repro/models/kernel_ctx.py``. The reference
 reads it at trace time; PyTorch runs eagerly, so here it is read on every

@@ -3,10 +3,12 @@ head — the port of ``repro/models/layers.py``.
 
 Params are plain nested dicts of tensors, in the reference's layouts.
 ``init_*`` takes ``new(shape, init)``, a callable that returns the tensor
-for one parameter (``init`` is ``"ones"``, ``"zeros"`` or
-``("normal", std)``): the caller decides whether that allocates, fills a
-view of a flat buffer, or only records the shape (see
-``models/model.py``). Creation order is the layout order.
+for one parameter (``init`` is ``"ones"``, ``"zeros"``, ``"log_arange"``
+— log(1..n), the SSM's A_log — or ``("normal", std[, (axis, keep)])``,
+normal with the entries from ``keep`` on along ``axis`` zeroed): the
+caller decides whether that allocates, fills a view of a flat buffer, or
+only records the shape (see ``models/model.py``). Creation order is the
+layout order.
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import kernel_ctx
 
 
-def dense(in_axis_size: int):
-    """The initializer of a dense weight: normal with std 1/sqrt(fan_in)."""
-    return ("normal", 1.0 / math.sqrt(in_axis_size))
+def dense(in_axis_size: int, keep=None):
+    """The initializer of a dense weight: normal with std 1/sqrt(fan_in);
+    ``keep=(axis, n)`` zeroes the entries from ``n`` on along ``axis``."""
+    std = 1.0 / math.sqrt(in_axis_size)
+    return ("normal", std) if keep is None else ("normal", std, keep)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Top-level model API of the port, train path: init, forward and the
-next-token loss — the port of ``repro/models/model.py`` for the dense
-archs without a frontend (decode, serving and the VLM/audio frontend
-stubs are still to port, see ROADMAP.md).
+next-token loss — the port of ``repro/models/model.py`` for the dense and
+Mamba2 (ssm) archs without a frontend (decode, serving and the VLM/audio
+frontend stubs are still to port, see ROADMAP.md).
 
 Params are a nested dict ``{"embed": {"tok"}, "layers": [per-layer
 dict, ...], "final_norm": {"scale"}, "head": {"w"}}`` in the reference's
@@ -35,14 +35,21 @@ def build_params(cfg: ModelConfig, new):
 
 
 def fill_(t: torch.Tensor, init, generator: torch.Generator):
-    """Initialize ``t`` in place: ones, zeros, or normal(0, std) drawn
-    from ``generator`` (on t's device)."""
+    """Initialize ``t`` in place (``init`` as in ``layers``): ones, zeros,
+    log(1..n), or normal(0, std) drawn from ``generator`` (on t's device),
+    with an optional zeroed tail along one axis (padded heads)."""
     if init == "ones":
         return t.fill_(1.0)
     if init == "zeros":
         return t.zero_()
-    _, std = init
-    return t.normal_(0.0, 1.0, generator=generator).mul_(std)
+    if init == "log_arange":
+        return t.copy_(torch.arange(1, t.numel() + 1, dtype=torch.float32,
+                                    device=t.device).log_())
+    t.normal_(0.0, 1.0, generator=generator).mul_(init[1])
+    if len(init) == 3:
+        axis, keep = init[2]
+        t.narrow(axis, keep, t.shape[axis] - keep).zero_()
+    return t
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device):

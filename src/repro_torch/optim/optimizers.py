@@ -26,12 +26,22 @@ def apply_updates(params, updates):
     return params.add_(updates.to(params.dtype))
 
 
+def weak(value: float, like: torch.Tensor):
+    """A Python scalar as JAX's weak typing applies it to ``like``: in
+    ``like``'s dtype. For bfloat16 that rounds the scalar to bfloat16
+    (``-0.1 * v`` multiplies by -0.10009765625); PyTorch would keep it in
+    float32 inside the product."""
+    if like.dtype in (torch.bfloat16, torch.float16):
+        return torch.tensor(value, dtype=like.dtype, device=like.device)
+    return value
+
+
 def sgd(lr: float) -> Optimizer:
     def init(params):
         return ()
 
     def update(grads, state, params=None):
-        return -lr * grads, state
+        return weak(-lr, grads) * grads, state
 
     return Optimizer(init, update)
 
@@ -41,8 +51,8 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
         return torch.zeros_like(params)
 
     def update(grads, m, params=None):
-        m = beta * m + grads
-        return -lr * m, m
+        m = weak(beta, m) * m + grads
+        return weak(-lr, m) * m, m
 
     return Optimizer(init, update)
 

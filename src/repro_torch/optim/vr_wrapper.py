@@ -9,13 +9,20 @@ port of ``repro/optim/vr_wrapper.py``.
     g(x) - g(y) + gbar needs a second gradient at the snapshot.
   * ``saga``      — Algorithm 5: table + anchor updated every step.
 
-The state lives in flat float32 buffers shaped like the trainer's params,
-(W, N) for W workers: ``table`` is a list of M such buffers, one per row,
-so a row is contiguous for every worker at once. The functions update the
-state IN PLACE and return it. Writing the table row ``table[i] <- g``
-rebinds the row to the tensor ``g`` itself (no copy): ``g`` then belongs
-to the table, and the caller takes the row it replaced as its next
-gradient buffer (``train/step.py`` does).
+The state lives in flat buffers shaped and typed like the trainer's
+params, (W, N) for W workers: ``table`` is a list of M such buffers, one
+per row, so a row is contiguous for every worker at once. The functions
+update the state IN PLACE and return it. The fresh gradient ``g`` is
+float32 (the trainer's accumulator); with bfloat16 master params the
+state is bfloat16, and ``g`` enters the corrections cast to it, as the
+reference casts it (``a.astype(t.dtype)``).
+
+Writing the table row ``table[i] <- g``: when the row has ``g``'s dtype,
+the row is rebound to the tensor ``g`` itself (no copy), ``g`` then
+belongs to the table, and the caller takes the row it replaced as its
+next gradient buffer (``train/step.py`` does); otherwise (bfloat16 rows)
+``g`` is copied into the row, rounded to its dtype, and stays the
+caller's.
 """
 from __future__ import annotations
 
@@ -53,6 +60,15 @@ def _roll(state: VRState):
     state.gtilde.zero_()
 
 
+def _write_row(state: VRState, i: int, g):
+    """table[i] <- g: a rebind when the dtypes agree, else a rounding copy
+    into the row."""
+    if state.table[i].dtype == g.dtype:
+        state.table[i] = g
+    else:
+        state.table[i].copy_(g)
+
+
 def correct(mode: str, state: VRState, g, M: int, *, g_snap=None,
             params=None, idx=None):
     """One VR step. Returns (corrected gradient v, state).
@@ -66,9 +82,11 @@ def correct(mode: str, state: VRState, g, M: int, *, g_snap=None,
     i = state.idx if idx is None else idx
     at_epoch_end = i == M - 1
 
+    dtype = state.gbar.dtype
+    gs = g.to(dtype)
     if mode == "svrg":
-        v = g - g_snap + state.gbar
-        state.gtilde.add_(g / M)
+        v = gs - g_snap.to(dtype) + state.gbar
+        state.gtilde.add_(gs / M)
         if at_epoch_end:
             _roll(state)
             state.snapshot.copy_(params)
@@ -78,15 +96,15 @@ def correct(mode: str, state: VRState, g, M: int, *, g_snap=None,
         return v, state
 
     old = state.table[i]
-    v = g - old + state.gbar
+    v = gs - old + state.gbar
     if mode == "saga":
-        state.gbar.add_((g - old) / M)
-        state.table[i] = g
+        state.gbar.add_((gs - old) / M)
+        _write_row(state, i, g)
         state.idx = (i + 1) % M
         return v, state
 
-    state.table[i] = g
-    state.gtilde.add_(g / M)
+    _write_row(state, i, g)
+    state.gtilde.add_(gs / M)
     if at_epoch_end:
         _roll(state)
         state.idx = 0
@@ -100,8 +118,11 @@ def apply(mode: str, state: VRState, g, M: int, *, lr: float, g_snap=None,
     """Fused VR correction + SGD step: the arithmetic of ``correct``
     followed by ``optimizers.sgd`` / ``apply_updates``, as ONE launch of
     the K1 ``vr_update`` kernel over the flat buffers of all workers,
-    writing x' into ``params`` and gtilde' (and SAGA's gbar') in place.
-    The table row is then rebound to ``g``. Returns (params, state)."""
+    writing x' into ``params`` and gtilde' (and SAGA's gbar') in place;
+    with bfloat16 state the kernel computes in float32 and rounds each
+    result to bfloat16, as the reference's kernel wrapper does. The table
+    row is then written with ``g`` (``_write_row``). Returns (params,
+    state)."""
     from repro_torch.kernels.vr_update import kernel as vr_kernel
 
     i = state.idx if idx is None else idx
@@ -122,7 +143,7 @@ def apply(mode: str, state: VRState, g, M: int, *, lr: float, g_snap=None,
 
     vr_kernel.vr_update(params, g, state.table[i], state.gbar, state.gtilde,
                         eta=lr, m=M, saga=(mode == "saga"), inplace=True)
-    state.table[i] = g
+    _write_row(state, i, g)
     if mode == "saga":
         # SAGA keeps no accumulator: drop the kernel's gtilde lane, as the
         # reference does

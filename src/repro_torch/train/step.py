@@ -6,20 +6,20 @@ local steps on its own shard of the finite sum, and at the end of every
 communication epoch (M*K steps) the central average of the params and of
 the anchor gbar (Algorithm 2, lines 16-18).
 
-State is flat. One run allocates, once: params (W, N) float32, the VR
-table (M rows of (W, N)), gbar and gtilde (W, N), and the gradient
-accumulator (W, N). The model sees views of a worker's row
-(``models.model.ParamLayout``), so no param-sized copy flattens or
-unflattens anything. The workers' local steps run one after another,
-which is exact: workers do not interact between exchanges. The reference
-vmaps them; the port makes W the leading dimension of every buffer, so
-the fused VR step (``vr_wrapper.apply``) is one K1 launch for all
-workers.
+State is flat. One run allocates, once: params (W, N) in param_dtype, the
+VR table (M rows of (W, N)), gbar and gtilde (W, N) in the same dtype,
+and the float32 gradient accumulator (W, N). The model sees views of a
+worker's row (``models.model.ParamLayout``), so no param-sized copy
+flattens or unflattens anything. The workers' local steps run one after
+another, which is exact: workers do not interact between exchanges. The
+reference vmaps them; the port makes W the leading dimension of every
+buffer, so the fused VR step (``vr_wrapper.apply``) is one K1 launch for
+all workers.
 
 With ``fused`` on, each worker's forward and backward run under
-``models.kernel_ctx`` (K2 RMSNorm, K3 flash attention, relaunched by the
-``remat="block"`` recompute), and with SGD the VR correction and update
-are one K1 launch per step.
+``models.kernel_ctx`` (K2 RMSNorm, K3 flash attention, K4 SSD scan,
+relaunched by the ``remat="block"`` recompute), and with SGD the VR
+correction and update are one K1 launch per step.
 """
 from __future__ import annotations
 
@@ -142,6 +142,20 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
     return TrainState(flat, opt.init(flat), vr, 0, grad, snap, layout)
 
 
+def _check_kernel_shapes(cfg: ModelConfig):
+    """Refuse, when the runner is built, a model whose shapes a kernel of
+    the fused path does not take on the card (the forward would raise in
+    its first step)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    kinds = set(cfg.layer_kinds())
+    if "attn" in kinds and cfg.attn_logit_softcap is None:
+        fa_kernel.check_supported(cfg.head_dim, getattr(torch, cfg.dtype))
+    if "ssm" in kinds:
+        ssd_kernel.check_supported(cfg.ssm_chunk, cfg.ssm_state,
+                                   cfg.ssm_head_dim)
+
+
 def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
                       backend: str = "vmap", fused=False, device=None,
                       tokens=None):
@@ -182,6 +196,8 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
             f"fused=True: the fused VR step bakes a plain SGD update, but "
             f"optimizer={tcfg.optimizer!r}; use optimizer='sgd' or "
             "fused='auto' (which fuses only the model forward)")
+    if fuse_on and device.type == "cuda":
+        _check_kernel_shapes(cfg)
     M = tcfg.vr_table_size
     E = M * tcfg.local_epoch
     accum, mb = batch_geometry(tcfg, W)
@@ -221,6 +237,8 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
                     _local_grads(vr.snapshot[w], state.layout, cfg, tcfg,
                                  toks[w], state.grad_snap[w])
         # the table row that ``g`` replaces is the next step's accumulator
+        # when the row is rebound to ``g`` (float32 rows); a bfloat16 row
+        # takes a rounded copy of ``g`` and the accumulator stays
         spare = vr.table[idx] if vr is not None and vr.table else None
         if fuse_vr:
             vr_wrapper.apply(mode, vr, state.grad, M, lr=tcfg.learning_rate,
@@ -236,7 +254,7 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
             updates, state.opt_state = opt.update(v, state.opt_state,
                                                   state.params)
             optimizers.apply_updates(state.params, updates)
-        if spare is not None:
+        if spare is not None and vr.table[idx] is not spare:
             state.grad = spare
         return torch.stack(losses).mean()
 

@@ -1,7 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA card: the hand-written
-kernels (K1 vr_update, K2 rmsnorm, K3 flash_attention) against their plain
-versions, on the card, and the fused trainer's refusal to fall back when a
-kernel does not build.
+kernels (K1 vr_update, K2 rmsnorm, K3 flash_attention, K4 ssd_scan)
+against their plain versions, on the card, the fused Mamba2 step, and the
+fused trainer's refusal to fall back when a kernel does not build.
 
 Run them on a machine with a Hopper card (this file imports no jax, and
 ``--noconftest`` skips the suite's jax set-up):
@@ -149,3 +149,173 @@ def test_fused_step_raises_when_a_kernel_does_not_build(device,
         run(state)
     assert rms_kernel.launches == before
     assert meta["fused"] is True and dataclasses.is_dataclass(state)
+
+
+# ---------------------------------------------------------------------------
+# K1's bfloat16 lane, K3 in float32 and at hd 256, K4 SSD scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("old_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("saga", [False, True])
+def test_vr_update_bf16_lane_matches_plain(device, saga, old_dtype):
+    """bfloat16 state, float32 g (and g_old bf16, a table row, or float32,
+    SVRG's snapshot gradient): float32 arithmetic in the same order as the
+    plain version, each result rounded to bfloat16 once, so at most one
+    bf16 ulp apart."""
+    g = torch.Generator(device=device).manual_seed(3)
+    shape = (2, 1 << 20)
+    x, gbar, gtilde = (torch.randn(shape, generator=g, device=device)
+                       .to(torch.bfloat16) for _ in range(3))
+    gf = torch.randn(shape, generator=g, device=device)
+    g_old = torch.randn(shape, generator=g, device=device).to(old_dtype)
+    kw = dict(eta=0.1, m=2, saga=saga)
+    want = vr_ref.vr_update_ref(x, gf, g_old, gbar, gtilde, **kw)
+    before = vr_kernel.launches
+    got = vr_kernel.vr_update(x, gf, g_old, gbar, gtilde, **kw)
+    torch.cuda.synchronize()
+    assert vr_kernel.launches == before + 1
+    for w, h in zip(want, got):
+        assert h.dtype == w.dtype
+        tol = 2.0 ** -8 * w.float().abs().max().item()
+        assert (h.float() - w.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,window,dtype", [
+    (1, 1024, 28, 4, 128, None, torch.float32),   # the Qwen2 slice in f32
+    (2, 200, 4, 2, 64, None, torch.float32),
+    (1, 300, 4, 1, 256, 64, torch.float32),       # hd 256, window, ragged
+    (1, 1024, 10, 1, 256, None, torch.bfloat16),  # recurrentgemma-2b's
+    (1, 200, 4, 2, 256, 16, torch.bfloat16),
+])
+def test_flash_kernel_float32_and_hd256_match_plain(device, B, S, H, KV, hd,
+                                                    window, dtype):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=device).manual_seed(1)
+    q, k, v = (torch.randn(B, S, n, hd, generator=g, device=device)
+               .to(dtype) for n in (H, KV, KV))
+    before = fa_kernel.launches
+    out = fa_kernel.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and out.dtype == dtype
+    want = fa_ref.flash_attention_ref(q, k, v, window=window)
+    # float32: full float32 products, sums in another order; bf16: about
+    # one bf16 ulp of the output
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _ssd_inputs(device, B, S, H, P, N, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, S, H, P, generator=g, device=device)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g,
+                                                  device=device))
+    A_log = torch.arange(1, H + 1, device=device, dtype=torch.float32).log()
+    Bc = torch.randn(B, S, N, generator=g, device=device)
+    Cc = torch.randn(B, S, N, generator=g, device=device)
+    return x, dt, A_log, Bc, Cc
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (4, 2048, 24, 64, 128, 64),     # Mamba2-130M's training shape
+    (4, 2000, 24, 64, 128, 64),     # S not a multiple of the chunk
+    (4, 256, 16, 16, 16, 8),        # mamba2-130m.reduced()
+    (1, 40, 3, 40, 24, 16),         # P not a multiple of the 32-column tile
+])
+def test_ssd_scan_kernel_matches_plain(device, B, S, H, P, N, chunk):
+    """The model-layout entry (the block's) against the flat plain
+    version on the same inputs, within the reference's kernel tolerance
+    (tests/test_kernels.py)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, dt, A_log, Bc, Cc = _ssd_inputs(device, B, S, H, P, N)
+    before = ssd_kernel.launches
+    y = ssd_kernel.ssd_scan(x, dt, A_log, Bc, Cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    la = -torch.exp(A_log)[None, None, :] * dt
+    want = ssd_ref.ssd_scan_ref(
+        la.transpose(1, 2).reshape(B * H, S),
+        (x * dt[..., None]).transpose(1, 2).reshape(B * H, S, P), Bc, Cc,
+        chunk=chunk).reshape(B, H, S, P).transpose(1, 2)
+    torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    flat = ssd_kernel.ssd_scan_flat(
+        la.transpose(1, 2).reshape(B * H, S).contiguous(),
+        (x * dt[..., None]).transpose(1, 2).reshape(B * H, S, P)
+        .contiguous(), Bc, Cc, chunk=chunk)
+    torch.testing.assert_close(flat.reshape(B, H, S, P).transpose(1, 2), y,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_fused_mamba2_step_launches_k4_and_matches_unfused(device):
+    """mamba2-130m.reduced() on the card: one fused epoch launches K4
+    (L + L) * A * W times per step and agrees with the unfused epoch."""
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.train import step as tstep
+    cfg = get_arch("mamba2-130m").reduced()
+    tcfg = TrainConfig(seq_len=64, global_batch=4, microbatch=1,
+                       optimizer="sgd", learning_rate=0.1, vr="centralvr",
+                       vr_table_size=2)
+    losses = {}
+    for fused in (True, False):
+        run, meta = tstep.make_epoch_runner(cfg, tcfg, 2, fused=fused,
+                                            device=device)
+        state = tstep.init_train_state(cfg, tcfg, 2, device=device)
+        before = ssd_kernel.launches
+        state, losses[fused] = run(state)
+        torch.cuda.synchronize()
+        launched = ssd_kernel.launches - before
+        assert launched == (2 * 2 * cfg.num_layers * meta["accum"] * 2
+                            if fused else 0)
+    torch.testing.assert_close(losses[True], losses[False], rtol=2.0 ** -7,
+                               atol=0)
+
+
+@pytest.mark.parametrize("dtype,param_dtype", [("float32", "float32"),
+                                               ("bfloat16", "bfloat16")])
+def test_fused_lm_epoch_in_float32_and_with_bf16_masters(device, dtype,
+                                                         param_dtype):
+    """qwen2-7b.reduced() on the card with float32 compute (K3's float32
+    path inside the trainer), and with bfloat16 masters (K1's bfloat16
+    lane): one fused epoch launches every kernel and agrees with the
+    unfused epoch."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.train import step as tstep
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(), dtype=dtype,
+                              param_dtype=param_dtype)
+    tcfg = TrainConfig(seq_len=64, global_batch=2, microbatch=1,
+                       optimizer="sgd", learning_rate=0.1, vr="centralvr",
+                       vr_table_size=2)
+    out = {}
+    for fused in (True, False):
+        run, _ = tstep.make_epoch_runner(cfg, tcfg, 1, fused=fused,
+                                         device=device)
+        state = tstep.init_train_state(cfg, tcfg, 1, device=device)
+        before = (vr_kernel.launches, fa_kernel.launches)
+        state, losses = run(state)
+        torch.cuda.synchronize()
+        launched = (vr_kernel.launches - before[0],
+                    fa_kernel.launches - before[1])
+        assert launched == ((2, 16) if fused else (0, 0))
+        assert state.params.dtype == getattr(torch, param_dtype)
+        assert state.grad.dtype == torch.float32
+        out[fused] = (losses, state.params.float())
+    # float32: the kernels' float32 sums in another order; bf16: two bf16
+    # ulps (bf16 compute, and bf16 rounding flips of the masters)
+    if dtype == "float32":
+        torch.testing.assert_close(out[True][0], out[False][0], rtol=1e-5,
+                                   atol=0)
+        torch.testing.assert_close(out[True][1], out[False][1], rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        torch.testing.assert_close(out[True][0], out[False][0],
+                                   rtol=2.0 ** -7, atol=0)
+        diff = (out[True][1] - out[False][1]).norm()
+        assert diff <= 2.0 ** -7 * out[False][1].norm()

@@ -34,6 +34,7 @@ from repro_torch.config import ModelConfig, TrainConfig, get_arch
 from repro_torch.data import synthetic
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.vr_update import kernel as vr_kernel
 from repro_torch.launch import train as launch_train
 from repro_torch.models import kernel_ctx, model
@@ -76,11 +77,17 @@ def test_slice_size_at_full_width():
 
 
 def test_other_block_kinds_raise_naming_the_roadmap_item():
-    cfg = ModelConfig(name="s", family="ssm", num_layers=2, d_model=32,
-                      num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64,
-                      ssm_state=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model.ParamLayout(cfg)
+    """ssm blocks are ported (tests/test_torch_ssm.py); the hybrid
+    recurrent blocks and MoE FFNs are not."""
+    base = dict(num_layers=3, d_model=32, num_heads=2, num_kv_heads=2,
+                d_ff=64, vocab_size=64)
+    for cfg in (ModelConfig(name="h", family="hybrid",
+                            block_pattern=("rec", "rec", "attn"),
+                            rglru_heads=2, local_window=8, **base),
+                ModelConfig(name="m", family="moe", num_experts=4,
+                            num_experts_per_tok=2, moe_d_ff=32, **base)):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            model.ParamLayout(cfg)
 
 
 def test_synthetic_stream_is_a_finite_sum():
@@ -139,7 +146,7 @@ def _loss_and_grads(remat, dtype="float32"):
             convert.lm_params_from_jax(grads, cfg))
 
 
-@pytest.mark.parametrize("remat", ["none", "block"])
+@pytest.mark.parametrize("remat", ["none", "block", "dots"])
 def test_loss_and_grads_match_reference(remat):
     got, want, g_port, g_ref = _loss_and_grads(remat)
     np.testing.assert_allclose(got, want, **LM_TOL)
@@ -156,19 +163,72 @@ def test_bf16_loss_matches_reference():
 
 
 def test_remat_recomputes_the_same_gradients():
+    """"block" recomputes each block, "dots" (the reference's
+    checkpoint_dots_with_no_batch_dims) keeps the plain 2-D products and
+    recomputes the rest: both give the gradients of "none" bit for bit,
+    and a policy the reference does not have is refused."""
     _, cfg = cfgs()
     toks = synthetic.microbatch_tokens(cfg, 0, 0, 0, 2, 24)
     grads = {}
-    for remat in ("none", "block"):
+    for remat in ("none", "block", "dots"):
         tree = model.init_params(cfg, torch.Generator().manual_seed(0),
                                  device="cpu")
         model.tree_map(lambda t: t.requires_grad_(), tree)
         model.loss_fn(tree, cfg, {"tokens": toks}, remat=remat).backward()
         grads[remat] = model.tree_map(lambda t: t.grad, tree)
-    model.tree_zip(lambda a, b: np.testing.assert_array_equal(
-        a.numpy(), b.numpy()), grads["none"], grads["block"])
+    for remat in ("block", "dots"):
+        model.tree_zip(lambda a, b: np.testing.assert_array_equal(
+            a.numpy(), b.numpy()), grads["none"], grads[remat])
     with pytest.raises(ValueError, match="remat"):
-        model.loss_fn(tree, cfg, {"tokens": toks}, remat="dots")
+        model.loss_fn(tree, cfg, {"tokens": toks}, remat="offload")
+
+
+def test_remat_dots_saves_only_the_plain_products(monkeypatch):
+    """Under "dots" the backward recomputes no 2-D product (they are
+    saved) and does recompute the rest of the block (here the attention
+    score products, which have batch dimensions)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch.models import transformer
+    seen, save_dots = {}, transformer._save_dots
+
+    def spy(ctx, op, *args, **kwargs):
+        policy = save_dots(ctx, op, *args, **kwargs)
+        seen.setdefault(policy, set()).add(str(op))
+        return policy
+    monkeypatch.setattr(transformer, "_save_dots", spy)
+    _, cfg = cfgs()
+    tree = model.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    model.tree_map(lambda t: t.requires_grad_(), tree)
+    toks = synthetic.microbatch_tokens(cfg, 0, 0, 0, 2, 24)
+    model.loss_fn(tree, cfg, {"tokens": toks}, remat="dots").backward()
+    assert seen[CheckpointPolicy.MUST_SAVE] == {"aten.mm.default"}
+    assert "aten.mm.default" not in seen[CheckpointPolicy.PREFER_RECOMPUTE]
+    assert "aten.bmm.default" in seen[CheckpointPolicy.PREFER_RECOMPUTE]
+
+
+def test_padded_heads_start_at_zero_like_the_reference():
+    """With pad_heads_to set, the padded heads' columns of wq and rows of
+    wo are zero at init, as the reference makes them, whether the params
+    are drawn as a tree or into the trainer's flat buffer."""
+    jcfg, cfg = cfgs()
+    jcfg = dataclasses.replace(jcfg, pad_heads_to=6)
+    cfg = dataclasses.replace(cfg, pad_heads_to=6)
+    n = cfg.num_heads
+    ref = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    layout = model.ParamLayout(cfg)
+    flat = layout.init_(torch.empty(layout.n),
+                        torch.Generator().manual_seed(0))
+    trees = (model.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu"), layout.views(flat),
+             convert.lm_params_from_jax(ref, cfg))
+    for tree in trees:
+        for layer in tree["layers"]:
+            wq, wo = layer["mixer"]["wq"], layer["mixer"]["wo"]
+            assert wq.shape[1] == wo.shape[0] == 6
+            assert torch.all(wq[:, n:] == 0) and torch.all(wo[n:] == 0)
+            assert torch.all(wq[:, :n] != 0) and torch.all(wo[:n] != 0)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +298,60 @@ def test_vr_steps_match_reference(mode, fused):
             == jvr.storage_multiplier(mode, M))
 
 
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("mode", ["centralvr", "svrg", "saga"])
+def test_bf16_master_vr_steps_match_reference_exactly(mode, fused):
+    """bfloat16 VR state with float32 gradients, as the trainer has them
+    with param_dtype="bfloat16": two epochs of M=3 steps of ``correct`` +
+    SGD (or the fused ``apply``) give the reference's params, table rows,
+    gbar and gtilde bit for bit — the rows take a rounded copy of g and
+    stay bfloat16, g keeps its float32 buffer, and every rounding point
+    (the corrections in bfloat16, the kernel in float32 with the results
+    rounded, -lr rounded to bfloat16 as JAX's weak type) is the
+    reference's."""
+    M, lr = 3, 0.05
+    bf = jnp.bfloat16
+    rng = np.random.default_rng(2)
+    x0 = np.asarray(jnp.asarray(rng.standard_normal(40), bf),
+                    dtype=np.float32)
+    gs = rng.standard_normal((2 * M, 2, 40)).astype(np.float32)
+    jp = {"w": jnp.asarray(x0, bf)}
+    jst = jvr.init_vr(mode, jp, M)
+    p = torch.from_numpy(x0.copy()).to(torch.bfloat16)
+    st = vr_wrapper.init_vr(mode, p, M)
+    for k in range(2 * M):
+        g, gs_ = gs[k]
+        jg, jgs = {"w": jnp.asarray(g)}, {"w": jnp.asarray(gs_)}
+        tg, tgs = torch.from_numpy(g.copy()), torch.from_numpy(gs_.copy())
+        if fused:
+            jp, jst = jvr.apply(mode, jst, jg, M, lr=lr, g_snap=jgs,
+                                params=jp, idx=jnp.int32(k % M),
+                                interpret=True)
+            vr_wrapper.apply(mode, st, tg, M, lr=lr, g_snap=tgs, params=p,
+                             idx=k % M)
+        else:
+            jv, jst = jvr.correct(mode, jst, jg, M, g_snap=jgs, params=jp,
+                                  idx=jnp.int32(k % M))
+            ju, _ = joptim.sgd(lr).update(jv, ())
+            jp = joptim.apply_updates(jp, ju)
+            v, _ = vr_wrapper.correct(mode, st, tg, M, g_snap=tgs, params=p,
+                                      idx=k % M)
+            u, _ = optimizers.sgd(lr).update(v, ())
+            optimizers.apply_updates(p, u)
+        assert tg.dtype == torch.float32
+        assert all(row.dtype == torch.bfloat16 for row in st.table)
+
+    def same(t, a):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(a, dtype=np.float32))
+    same(p, jp["w"])
+    same(st.gbar, jst.gbar["w"])
+    same(st.gtilde, jst.gtilde["w"])
+    for i, row in enumerate(st.table):
+        same(row, jst.table["w"][i])
+
+
 # ---------------------------------------------------------------------------
 # the epoch runner and the loop
 # ---------------------------------------------------------------------------
@@ -265,6 +379,50 @@ def test_epoch_runner_matches_reference(vr, W, fused):
     if W > 1:       # epoch boundary: the workers hold the central average
         torch.testing.assert_close(state.params[0], state.params[1],
                                    rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("W", [1, 2])
+@pytest.mark.parametrize("vr", ["centralvr", "svrg", "saga"])
+def test_bf16_master_epoch_runner_matches_reference(vr, W, fused):
+    """param_dtype="bfloat16" (the reference's optimized profile) with
+    float32 compute, three epochs, against the reference's runner.
+
+    The gradient accumulator stays float32 and the table rows bfloat16
+    through every step (the step-level rounding is held bit for bit in
+    ``test_bf16_master_vr_steps_match_reference_exactly``). The first
+    loss, on the same params, is held to LM_TOL. After an update the two
+    runs cannot stay within LM_TOL: the float32 gradients differ by
+    ~1e-6 relative (summation order), and wherever x - lr*v lies that
+    close to a rounding boundary of bfloat16, the two params round to
+    neighbouring bfloat16 values, one ulp (2**-8 relative) apart, and
+    each such flip moves the later gradients. So the later losses are
+    held to 2**-9 relative (half a bf16 ulp), and the final params to 2%
+    of the run's update in norm."""
+    _, cfg = cfgs(param_dtype="bfloat16")
+    p0, toks, want_losses, want_params = reference_run(
+        vr, W, fused, param_dtype="bfloat16", epochs=3)
+
+    def dtypes(state):
+        assert state.params.dtype == torch.bfloat16
+        assert state.grad.dtype == torch.float32
+        if state.grad_snap is not None:
+            assert state.grad_snap.dtype == torch.float32
+        vrs = state.vr_state
+        assert all(t.dtype == torch.bfloat16
+                   for t in vrs.table + [vrs.gbar, vrs.gtilde])
+    state, losses, _ = port_run(vr, W, fused, p0, toks, epochs=3,
+                                param_dtype="bfloat16", after_epoch=dtypes)
+    np.testing.assert_allclose(losses[0], want_losses[0], **LM_TOL)
+    np.testing.assert_allclose(losses, want_losses, rtol=2.0 ** -9)
+    layout = state.layout
+    start = layout.load_(torch.empty(layout.n),
+                         convert.lm_params_from_jax(p0, cfg))
+    for w in range(W):
+        want = layout.load_(torch.empty(layout.n),
+                            convert.lm_params_from_jax(want_params[w], cfg))
+        diff = (state.params[w].float() - want).norm()
+        assert diff <= 0.02 * (want - start).norm()
 
 
 def test_fused_step_calls_each_kernel_as_the_chip_run_counts(monkeypatch):
@@ -487,9 +645,32 @@ def test_port_and_chip_smoke_import_neither_jax_nor_the_reference():
         assert not bad, (f, bad)
 
 
+def test_flash_kernel_takes_every_head_size_and_float32():
+    """K3 takes float32 as well as bfloat16 and every head size the repo's
+    configs use (recurrentgemma-2b has 256); the fused trainer checks the
+    model's shapes when it is built, before any step."""
+    import repro.configs  # noqa: F401  (registers the reference's archs)
+    from repro.config import list_archs as jlist_archs
+    for name in jlist_archs():
+        hd = jget_arch(name).head_dim
+        for dtype in (torch.bfloat16, torch.float32):
+            fa_kernel.check_supported(hd, dtype)
+    src = fa_kernel.SOURCE.read_text()
+    assert "case 256:" in src and "launch_hd<float>" in src
+    with pytest.raises(ValueError, match="head size 96"):
+        fa_kernel.check_supported(96, torch.bfloat16)
+    with pytest.raises(TypeError, match="float16"):
+        fa_kernel.check_supported(128, torch.float16)
+    _, cfg = cfgs()
+    tstep._check_kernel_shapes(cfg)
+    with pytest.raises(ValueError, match="head size 16"):
+        tstep._check_kernel_shapes(dataclasses.replace(cfg, head_dim=16))
+
+
 @pytest.mark.parametrize("kernel,name", [
     (rms_kernel, "rmsnorm/kernel.py"), (fa_kernel,
-                                        "flash_attention/kernel.py")])
+                                        "flash_attention/kernel.py"),
+    (ssd_kernel, "ssd_scan/kernel.py")])
 def test_kernel_sources_name_their_tpu_kernel_and_target(kernel, name):
     from repro_torch.kernels import build
     src = kernel.SOURCE.read_text()

@@ -1,6 +1,7 @@
 """Shared set-up of the LM agreement tests of the PyTorch port
-(``test_torch_lm.py``, ``test_torch_lm_kernels.py``): the reduced
-Qwen2-7B config in float32 for both packages, two epochs of the
+(``test_torch_lm.py``, ``test_torch_lm_kernels.py``,
+``test_torch_ssm.py``): a reduced config (Qwen2-7B by default, or
+Mamba2-130M) computing in float32 for both packages, epochs of the
 reference's epoch runner (cached per process), the same run in the port
 from the reference's params and tokens, and a leafwise comparison."""
 import dataclasses
@@ -23,10 +24,12 @@ from repro_torch.train import step as tstep
 LM_TOL = dict(rtol=3e-5, atol=1e-6)
 
 
-def cfgs(dtype="float32"):
-    """(reference cfg, port cfg): qwen2-7b.reduced() computing in dtype."""
-    jcfg = dataclasses.replace(jget_arch("qwen2-7b").reduced(), dtype=dtype)
-    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(), dtype=dtype)
+def cfgs(dtype="float32", arch="qwen2-7b", param_dtype="float32"):
+    """(reference cfg, port cfg): ``arch``.reduced() computing in dtype,
+    with masters in param_dtype."""
+    kw = dict(dtype=dtype, param_dtype=param_dtype)
+    jcfg = dataclasses.replace(jget_arch(arch).reduced(), **kw)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **kw)
     return jcfg, cfg
 
 
@@ -44,10 +47,12 @@ def assert_trees_close(port_tree, ref_tree, **tol):
 
 
 @functools.lru_cache(maxsize=None)
-def reference_run(vr, W, fused):
-    """Two epochs of the reference's vmap epoch runner: (initial params of
-    worker 0, token block, per-step losses, final params per worker)."""
-    jcfg, _ = cfgs()
+def reference_run(vr, W, fused, arch="qwen2-7b", param_dtype="float32",
+                  epochs=2):
+    """``epochs`` epochs of the reference's vmap epoch runner: (initial
+    params of worker 0, token block, per-step losses, final params per
+    worker)."""
+    jcfg, _ = cfgs(arch=arch, param_dtype=param_dtype)
     tcfg = JTrainConfig(**train_kw(vr, W))
     run, meta = jstep.make_epoch_runner(jcfg, tcfg, W, backend="vmap",
                                         fused=fused)
@@ -58,7 +63,7 @@ def reference_run(vr, W, fused):
         jcfg, tcfg.seed, workers=W, steps=2, accum=meta["accum"],
         microbatch=meta["microbatch"], seq=tcfg.seq_len, table_size=2)
     losses = []
-    for _ in range(2):
+    for _ in range(epochs):
         state, ls = run(state)
         losses.append(np.asarray(ls, dtype=float))
     final = [jax.tree_util.tree_map(
@@ -67,9 +72,11 @@ def reference_run(vr, W, fused):
     return p0, np.asarray(toks), np.concatenate(losses), final
 
 
-def port_run(vr, W, fused, p0, toks, epochs=2):
-    """The same run in the port on the CPU: (state, losses, meta)."""
-    _, cfg = cfgs()
+def port_run(vr, W, fused, p0, toks, epochs=2, arch="qwen2-7b",
+             param_dtype="float32", after_epoch=None):
+    """The same run in the port on the CPU: (state, losses, meta);
+    ``after_epoch(state)`` is called after every epoch."""
+    _, cfg = cfgs(arch=arch, param_dtype=param_dtype)
     tcfg = TrainConfig(**train_kw(vr, W))
     run, meta = tstep.make_epoch_runner(cfg, tcfg, W, fused=fused,
                                         device="cpu",
@@ -81,4 +88,6 @@ def port_run(vr, W, fused, p0, toks, epochs=2):
     for _ in range(epochs):
         state, ls = run(state)
         losses.append(ls.numpy())
+        if after_epoch is not None:
+            after_epoch(state)
     return state, np.concatenate(losses), meta
