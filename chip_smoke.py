@@ -11,7 +11,9 @@ Phases, each of which raises on failure:
   2. build: compiles the hand-written CUDA kernels ``vr_update`` (K1),
      ``rmsnorm`` (K2), ``flash_attention`` (K3) and ``ssd_scan`` (K4) from
      the checkout's sources, one nvcc each, all started together
-     (sm_90a), timed;
+     (sm_90a), timed; prints each kernel's ptxas registers and spills and
+     the number of HGMMA (wgmma) instructions in K3's SASS
+     (``cuobjdump -sass``);
   3. each kernel against its plain PyTorch version on the card. K1 at the
      convex path's shapes (8, 1000) and (1, 90), float64 and float32,
      SAGA off and on, decay 0 and 2e-4, prox none / l1 / elasticnet /
@@ -68,7 +70,9 @@ Phases, each of which raises on failure:
      card, the time of the one PyTorch call that computes the same
      function where there is one (``F.rms_norm``, ``F.scaled_dot_product_
      attention``; timed as a yardstick only; none for K1 and K4) and its
-     largest error against the plain version.
+     largest error against the plain version; K2 also at 8192 x 768 and
+     K3 also in float32 and at hd 256 (``other_shapes``). K3's ``[time]``
+     lines give its TFLOP/s and share of the bound beside SDPA's.
 
 With ``--profile`` it then traces 2000 fused inner steps of each convex
 path and one fused epoch of each full-width LM (Qwen2 width, Mamba2-130M,
@@ -146,9 +150,22 @@ def phase_build(kernels):
     dt = time.perf_counter() - t0
     log(f"[build] {', '.join(lib.name for lib in libs)} in {dt:.2f} s")
     for name, out in build.logs.items():
+        entry = ""
         for line in out.splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line):
-                log(f"[build]   {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill" in line or ("ptxas" in line and "Used" in line):
+                log(f"[build]   {name}: {entry[-60:]}: {line.strip()}")
+    fa_lib = libs[list(kernels).index("flash_attention")]
+    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"),
+                           "-sass", str(fa_lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"[build] {fa_lib.name}: {hgmma} HGMMA instructions in its SASS "
+        f"(cuobjdump -sass)")
+    if not hgmma:
+        raise AssertionError("flash_attention's SASS has no HGMMA: the bf16 "
+                             "path does not issue wgmma")
     return dt
 
 
@@ -202,13 +219,21 @@ def phase_compare(torch, np, vr_kernel, vr_ref, proxops):
 
 
 def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
-    worst = 0.0
+    """K2 against its plain version; returns the largest bf16 error at the
+    two main-path shapes."""
+    worst_at = {(1024, 3584): 0.0, (8192, 768): 0.0}
     g = torch.Generator(device="cuda").manual_seed(0)
-    for rows, d, dt, sdt in ((1024, 3584, torch.bfloat16, torch.bfloat16),
-                             (1024, 3584, torch.float32, torch.float32),
-                             (37, 3584, torch.bfloat16, torch.float32),
-                             (512, 128, torch.bfloat16, torch.bfloat16)):
-        x = torch.randn(rows, d, generator=g, device="cuda").to(dt)
+    for rows, d, dt, sdt, off in (
+            (1024, 3584, torch.bfloat16, torch.bfloat16, 0),
+            (1024, 3584, torch.float32, torch.float32, 0),
+            (8192, 768, torch.bfloat16, torch.bfloat16, 0),
+            (37, 3584, torch.bfloat16, torch.float32, 0),
+            (512, 128, torch.bfloat16, torch.bfloat16, 0),
+            (64, 1001, torch.bfloat16, torch.bfloat16, 0),
+            (16, 1024, torch.bfloat16, torch.bfloat16, 1)):
+        # off: x starts one element into its buffer (not 16-byte aligned)
+        x = torch.randn(rows * d + off, generator=g, device="cuda").to(
+            dt)[off:].view(rows, d)
         s = torch.randn(d, generator=g, device="cuda").to(sdt)
         y = rms_kernel.rmsnorm(x, s)
         torch.cuda.synchronize()
@@ -216,13 +241,15 @@ def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
         err = (y.float() - want).abs().max().item()
         tol = (1e-5 if dt == torch.float32 else 1e-2) * max(
             1.0, want.abs().max().item())
-        log(f"[compare] rmsnorm ({rows}, {d}) {dt} scale {sdt}: max abs err "
-            f"{err!r} (tolerance {tol!r})")
+        plan = rms_kernel.vector_plan(d, x.element_size(), x.data_ptr(),
+                                      s.data_ptr(), y.data_ptr())
+        log(f"[compare] rmsnorm ({rows}, {d}) {dt} scale {sdt} offset {off} "
+            f"plan {plan}: max abs err {err!r} (tolerance {tol!r})")
         if not err <= tol:
             raise AssertionError(f"rmsnorm ({rows}, {d}) {dt}: {err} > {tol}")
-        if dt == torch.bfloat16 and rows == 1024:
-            worst = max(worst, err)
-    return worst
+        if dt == torch.bfloat16 and (rows, d) in worst_at:
+            worst_at[(rows, d)] = max(worst_at[(rows, d)], err)
+    return worst_at
 
 
 def phase_compare_flash(torch, fa_kernel, fa_ref):
@@ -233,7 +260,11 @@ def phase_compare_flash(torch, fa_kernel, fa_ref):
                                  (2, 200, 4, 2, 32, None),
                                  (1, 256, 4, 4, 64, None),
                                  (1, 1024, 4, 2, 32, None),
-                                 (1, 100, 4, 2, 32, 16)):
+                                 (1, 100, 4, 2, 32, 16),
+                                 (2, 200, 28, 4, 128, None),
+                                 (2, 200, 28, 4, 64, None),
+                                 (1, 2048, 28, 4, 128, None),
+                                 (1, 2048, 28, 4, 128, 200)):
         q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
                    .to(torch.bfloat16) for n in (H, KV, KV))
         out = fa_kernel.flash_attention(q, k, v, window=win)
@@ -727,10 +758,15 @@ def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128,
     rec.update(shape=[B, S, H, KV, hd], dtype=dtype, flops=flops,
                bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="bytes" if bytes_s >= ops_s else "operations")
+    rec.update(tflops=flops / rec["ms"] / 1e9,
+               library_tflops=flops / rec["library_ms"] / 1e9,
+               bound_share=rec["bound_ms"] / rec["ms"])
     log(f"[time] flash_attention {rec['shape']} {dtype}: kernel {rec['ms']!r} "
-        f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python; "
-        f"plain {rec['plain_ms']!r} ms; SDPA {rec['library_ms']!r} ms; bound "
-        f"{rec['bound_ms']!r} ms ({rec['bound_by']}, {flops} flop)")
+        f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python, "
+        f"{rec['tflops']!r} TFLOP/s, {rec['bound_share']!r} of the bound; "
+        f"plain {rec['plain_ms']!r} ms; SDPA {rec['library_ms']!r} ms, "
+        f"{rec['library_tflops']!r} TFLOP/s; bound {rec['bound_ms']!r} ms "
+        f"({rec['bound_by']}, {flops} flop)")
     return rec
 
 
@@ -995,6 +1031,7 @@ def main():
     sync_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (8, 1000))
     cvr_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 90))
     rms_time = time_rmsnorm(torch, rms_kernel, rms_ref)
+    rms_mamba_time = time_rmsnorm(torch, rms_kernel, rms_ref, 8192, 768)
     fa_time = time_flash(torch, fa_kernel, fa_ref)
     fa_f32_time = time_flash(torch, fa_kernel, fa_ref, dtype="float32")
     fa_hd256_time = time_flash(torch, fa_kernel, fa_ref, H=10, KV=1, hd=256)
@@ -1037,10 +1074,12 @@ def main():
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:21",
-        "launches": total["rmsnorm"], "max_abs_err": rms_err,
+        "launches": total["rmsnorm"], "max_abs_err": rms_err[(1024, 3584)],
         **{k: rms_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shape", "dtype",
-                                    "eager_ms")}}, {
+                                    "eager_ms")},
+        "other_shapes": [dict(rms_mamba_time,
+                              max_abs_err=rms_err[(8192, 768)])]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
@@ -1048,7 +1087,8 @@ def main():
         "launches": total["flash_attention"], "max_abs_err": fa_err,
         **{k: fa_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "shape", "dtype",
-                                   "eager_ms")},
+                                   "eager_ms", "tflops", "library_tflops",
+                                   "bound_share")},
         "other_shapes": [dict(r, max_abs_err=fa_repaired_err[key])
                          for r, key in ((fa_f32_time, "float32_hd128"),
                                         (fa_hd256_time, "bfloat16_hd256"))]}, {

@@ -10,10 +10,13 @@ Its bound on an H100 is operations: the causal half of QK^T and PV,
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_ext/`` (``kernels/build.py``) and loaded with ctypes. It
 takes bfloat16 or float32 q, k, v in the model's layout with head sizes
-32, 64, 128 and 256 (every head size of the repo's configs); float32 runs
-without tensor cores, in full float32. Dispatch is on the tensors'
-device: CUDA tensors launch the kernel (or raise), CPU tensors run the
-plain version of ``ref.py``. There is no fallback from one to the other.
+32, 64, 128 and 256 (every head size of the repo's configs). bfloat16
+runs on the tensor cores through wgmma, its tiles loaded by TMA from
+tensor maps that the launch encodes over the tensors as they lie;
+float32 runs without tensor cores, in full float32. The blocks of query
+rows and keys are ``ref.BLOCKS``. Dispatch is on the tensors' device:
+CUDA tensors launch the kernel (or raise), CPU tensors run the plain
+version of ``ref.py``. There is no fallback from one to the other.
 """
 from __future__ import annotations
 

@@ -4,8 +4,8 @@ online-softmax form (``chunked_attention``, the port of the reference's
 and whose autograd is the fused path's backward), the naive quadratic
 form (``naive_attention``, small shapes only), and
 :func:`flash_attention_ref`, the arithmetic of the CUDA kernel in
-``csrc/flash_attention.cu``: the chunked form at the kernel's 64-row
-blocks, on a sequence padded to the block.
+``csrc/flash_attention.cu``: the chunked form at the kernel's query and
+key blocks (``BLOCKS``), on a sequence padded to the query block.
 
 The wrapper in ``kernel.py`` runs :func:`flash_attention_ref` for tensors
 on the CPU; ``chip_smoke.py`` holds the kernel against it on the card.
@@ -19,7 +19,26 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-BLOCK = 64          # the CUDA kernel's query and key block
+# the CUDA kernel's (query block, key block) by dtype and head size: the
+# table of launch_hd<bf16> and launch_hd<float> in csrc/flash_attention.cu
+# (tests/test_torch_lm_kernels.py holds the two together)
+BLOCKS = {
+    torch.bfloat16: {32: (128, 64), 64: (128, 64), 128: (128, 64),
+                     256: (64, 64)},
+    torch.float32: {32: (64, 64), 64: (64, 64), 128: (64, 64),
+                    256: (64, 32)},
+}
+
+
+def blocks(dtype, head_dim: int):
+    """(query block, key block) of the kernel for q's dtype and head size:
+    the bf16 entry for bfloat16, the float32 entry for any other dtype
+    (the CPU runs float64 too); a head size the kernel does not take takes
+    the entry of the next larger one, or of the largest."""
+    table = BLOCKS[torch.bfloat16 if dtype == torch.bfloat16
+                   else torch.float32]
+    return table[min((h for h in table if h >= head_dim),
+                     default=max(table))]
 
 
 def chunked_attention(q, k, v, *, window: Optional[int] = None,
@@ -102,16 +121,21 @@ def naive_attention(q, k, v, *, window: Optional[int] = None):
     return out.reshape(B, S, H, hd)
 
 
-def flash_attention_ref(q, k, v, *, window: Optional[int] = None):
-    """The kernel's function: causal GQA attention with 64-row blocks; S
-    need not be a multiple of the block (padded here with zeros, which
-    causality hides from every real query)."""
+def flash_attention_ref(q, k, v, *, window: Optional[int] = None,
+                        block: Optional[tuple] = None):
+    """The kernel's function: causal GQA attention chunked by the kernel's
+    (query block, key block) for q's dtype and head size (``blocks``), or
+    by ``block``. S need not be a multiple of the blocks: the sequence is
+    padded with zeros to the query block, which the key block divides;
+    causality hides the padding from every real query, and a key block of
+    padding after a row's visible keys changes none of its values."""
     B, S, H, hd = q.shape
-    pad = (-S) % BLOCK if S > BLOCK else 0
+    q_blk, kv_blk = block or blocks(q.dtype, hd)
+    pad = (-S) % q_blk
     if pad:
         q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    out = chunked_attention(q, k, v, window=window, q_chunk=BLOCK,
-                            kv_chunk=BLOCK)
+    out = chunked_attention(q, k, v, window=window, q_chunk=q_blk,
+                            kv_chunk=kv_blk)
     return out[:, :S]

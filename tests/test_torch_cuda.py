@@ -75,17 +75,25 @@ def test_vr_update_kernel_stores_only_what_changes(device, saga):
 # K2 RMSNorm and K3 flash attention
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rows,d,dtype,sdtype", [
-    (1024, 3584, torch.bfloat16, torch.bfloat16),   # the slice's shape
-    (1024, 3584, torch.float32, torch.float32),
-    (37, 3584, torch.bfloat16, torch.float32),      # ragged rows, f32 scale
-    (5, 128, torch.bfloat16, torch.bfloat16),
+@pytest.mark.parametrize("rows,d,dtype,sdtype,offset", [
+    (1024, 3584, torch.bfloat16, torch.bfloat16, 0),   # the slice's shape
+    (1024, 3584, torch.float32, torch.float32, 0),
+    (37, 3584, torch.bfloat16, torch.float32, 0),      # ragged rows, f32 scale
+    (5, 128, torch.bfloat16, torch.bfloat16, 0),
+    (8192, 768, torch.bfloat16, torch.bfloat16, 0),    # the Mamba2 step's
+    (64, 1001, torch.bfloat16, torch.bfloat16, 0),     # width not 8k: the loop
+    (16, 1024, torch.bfloat16, torch.bfloat16, 1),     # x off alignment: loop
+    (4, 12272, torch.float32, torch.float32, 0),       # MAX_D: the loop
+    (8, 4096, torch.float32, torch.bfloat16, 0),       # 8 warps a row
 ])
-def test_rmsnorm_kernel_matches_plain(device, rows, d, dtype, sdtype):
+def test_rmsnorm_kernel_matches_plain(device, rows, d, dtype, sdtype,
+                                      offset):
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     g = torch.Generator(device=device).manual_seed(0)
-    x = torch.randn(rows, d, generator=g, device=device).to(dtype)
+    # offset: x starts that many elements into its buffer
+    x = torch.randn(rows * d + offset, generator=g, device=device).to(
+        dtype)[offset:].view(rows, d)
     s = torch.randn(d, generator=g, device=device).to(sdtype)
     before = rms_kernel.launches
     y = rms_kernel.rmsnorm(x, s)
@@ -103,6 +111,10 @@ def test_rmsnorm_kernel_matches_plain(device, rows, d, dtype, sdtype):
     (2, 200, 4, 2, 32, None),       # S not a multiple of the block
     (1, 256, 4, 4, 64, None),       # H = KV, no grouping
     (1, 100, 4, 2, 32, 16),
+    (2, 200, 28, 4, 128, None),     # B 2, ragged S: the batch boundary
+    (2, 200, 28, 4, 64, None),      # under TMA's zero fill
+    (1, 2048, 28, 4, 128, None),
+    (1, 2048, 28, 4, 128, 200),     # a window at S 2048
 ])
 def test_flash_kernel_matches_plain(device, B, S, H, KV, hd, window):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel

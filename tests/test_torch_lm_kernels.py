@@ -95,6 +95,79 @@ def test_rmsnorm_wrapper_checks_its_operands():
         rms_kernel.rmsnorm(x.to("meta"), torch.ones(8, device="meta"))
 
 
+@pytest.mark.parametrize("d,itemsize,addresses,want", [
+    (768, 2, (0, 0, 0), (4, 1)),           # the Mamba2 step: a warp a row
+    (3584, 2, (0, 1 << 20, 4096), (4, 4)),  # the Qwen2 step: 4 warps a row
+    (8, 2, (0, 0, 0), (1, 1)),             # one vector, one lane
+    (256, 2, (0, 0, 0), (1, 1)),           # 32 vectors: one a lane
+    (512, 2, (0, 0, 0), (2, 1)),
+    (1536, 2, (0, 0, 0), (4, 2)),          # 192 vectors: 2 warps
+    (1004, 4, (0, 0, 0), (4, 2)),          # float32, 251 vectors
+    (3584, 4, (0, 0, 0), (4, 8)),          # float32: 896 vectors, 8 warps
+    (8192, 2, (0, 0, 0), (4, 8)),          # bf16 at the plans' edge
+    (4096, 4, (0, 0, 0), (4, 8)),          # float32 at the plans' edge
+    (8200, 2, (0, 0, 0), (0, 0)),          # wider than 8 warps hold
+    (12272, 4, (0, 0, 0), (0, 0)),         # MAX_D in float32
+    (1001, 2, (0, 0, 0), (0, 0)),          # bytes not a multiple of 16
+    (1024, 2, (2, 0, 0), (0, 0)),          # x one element off alignment
+    (1024, 2, (0, 8, 0), (0, 0)),          # scale off alignment
+    (1024, 2, (0, 0, 4), (0, 0)),          # y off alignment
+])
+def test_rmsnorm_vector_plan_picks_each_path(d, itemsize, addresses, want):
+    """K2's launch path: the vector body's (vectors a lane holds, warps a
+    row spans), or (0, 0) for the row-per-block loop; every plan it picks
+    is compiled, covers the row, and takes the fewest warps that keep a
+    lane at 4 vectors or fewer."""
+    got = rms_kernel.vector_plan(d, itemsize, *addresses)
+    assert got == want
+    if got != (0, 0):
+        vpl, wpr = got
+        assert got in rms_kernel.PLANS
+        vecs = d * itemsize // rms_kernel.VEC_BYTES
+        assert 32 * wpr * vpl >= vecs
+        fewer = [w for w in rms_kernel.WARPS_PER_ROW if w < wpr]
+        assert all(vecs > 4 * 32 * w for w in fewer)
+
+
+def test_rmsnorm_source_instantiates_every_plan():
+    """csrc/rmsnorm.cu's launch switch compiles exactly the wrapper's
+    PLANS (and the loop, (0, 0))."""
+    import re
+    src = rms_kernel.SOURCE.read_text()
+    cases = re.findall(r"case (\d+) \* 16 \+ (\d+):\s*return launch_rows<"
+                       r"T, S, (\d+), (\d+)>", src)
+    assert all((a, b) == (c, d) for a, b, c, d in cases)
+    assert {(int(a), int(b)) for a, b, _, _ in cases} == set(
+        rms_kernel.PLANS)
+    assert "vpl == 0 && wpr == 0" in src
+
+
+@pytest.mark.parametrize("x,scale,error,match", [
+    (torch.ones(4, 8, dtype=torch.float16), torch.ones(8), TypeError,
+     "float32 or bfloat16"),
+    (torch.ones(4, 8), torch.ones(8, dtype=torch.float64), TypeError,
+     "float32 or bfloat16"),
+    (torch.ones(8, 4).t(), torch.ones(8), ValueError, "contiguous"),
+    (torch.ones(4, 16), torch.ones(32)[::2], ValueError, "contiguous"),
+    (torch.ones(2, 12273), torch.ones(12273), ValueError, "outside"),
+    (torch.ones(2, 0), torch.ones(0), ValueError, "outside"),
+])
+def test_rmsnorm_launch_refuses_what_it_refused(x, scale, error, match):
+    """The kernel's checks (``check_launch``, reached with CUDA tensors):
+    the same errors as before the vector body, for the same operands."""
+    with pytest.raises(error, match=match):
+        rms_kernel.check_launch(x, scale)
+
+
+@pytest.mark.parametrize("d", [1, 7, 768, 1001, 3584, 8200, 12272])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_launch_takes_every_width_up_to_max_d(d, dtype):
+    """Every width 1..MAX_D (12,272) is taken, whichever path runs it."""
+    assert rms_kernel.MAX_D == 12272
+    rms_kernel.check_launch(torch.ones(2, d, dtype=dtype),
+                            torch.ones(d, dtype=dtype))
+
+
 # ---------------------------------------------------------------------------
 # K3: flash attention
 # ---------------------------------------------------------------------------
@@ -153,6 +226,49 @@ def test_chunked_and_naive_match_the_reference_forms(window):
         fa_plain.naive_attention(tq, tk, tv, window=window).numpy(),
         _np(jattn.naive_attention(q, k, v, window=window)), atol=2e-5,
         rtol=1e-4)
+
+
+def test_flash_block_table_follows_the_kernel_source():
+    """ref.BLOCKS, the plain version's (query block, key block) by dtype
+    and head size, is the table of launch_hd<bf16> / launch_hd<float> in
+    csrc/flash_attention.cu."""
+    import re
+    src = fa_kernel.SOURCE.read_text()
+    table = {}
+    for dtype, launch in ((torch.bfloat16, "launch_bf16"),
+                          (torch.float32, "launch_f32")):
+        cases = re.findall(rf"case (\d+): return {launch}<(\d+), (\d+), "
+                           rf"(\d+)>", src)
+        assert all(hd == hd2 for hd, hd2, _, _ in cases)
+        table[dtype] = {int(hd): (int(bq), int(bk))
+                        for hd, _, bq, bk in cases}
+    assert table == fa_plain.BLOCKS
+    assert set(table[torch.bfloat16]) == set(fa_kernel.HEAD_DIMS)
+    for dtype, hd, want in ((torch.bfloat16, 128, (128, 64)),
+                            (torch.bfloat16, 256, (64, 64)),
+                            (torch.float32, 256, (64, 32)),
+                            (torch.float64, 16, (64, 64)),
+                            (torch.bfloat16, 512, (64, 64))):
+        assert fa_plain.blocks(dtype, hd) == want
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("table", [torch.bfloat16, torch.float32])
+def test_flash_plain_at_kernel_blocks_matches_pallas_interpret(table, hd,
+                                                               window):
+    """The plain version chunked by the kernel's blocks (bf16's 128 / 64
+    and float32's 64 / 64 at these head sizes), in float32, against the
+    Pallas kernel at the same blocks in interpret mode; GQA, a ragged S
+    and a window."""
+    q_blk, kv_blk = fa_plain.BLOCKS[table][hd]
+    q, k, v = _qkv(3, 1, 200, 4, 2, hd)
+    want = fa_ops.flash_attention(q, k, v, window=window, q_blk=q_blk,
+                                  kv_blk=kv_blk, interpret=True)
+    got = fa_plain.flash_attention_ref(
+        _t(q, torch.float32), _t(k, torch.float32), _t(v, torch.float32),
+        window=window, block=(q_blk, kv_blk))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=2e-5, rtol=1e-4)
 
 
 def test_flash_wrapper_checks_its_operands():
