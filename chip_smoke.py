@@ -11,9 +11,10 @@ Phases, each of which raises on failure:
   2. build: compiles the hand-written CUDA kernels ``vr_update`` (K1),
      ``rmsnorm`` (K2), ``flash_attention`` (K3) and ``ssd_scan`` (K4) from
      the checkout's sources, one nvcc each, all started together
-     (sm_90a), timed; prints each kernel's ptxas registers and spills and
-     the number of HGMMA (wgmma) instructions in K3's SASS
-     (``cuobjdump -sass``);
+     (sm_90a), timed; prints each kernel's ptxas registers and spills, the
+     number of HGMMA (wgmma) instructions in K3's SASS and of HMMA
+     (mma.sync) instructions in K4's (``cuobjdump -sass``; each must be
+     above 0);
   3. each kernel against its plain PyTorch version on the card. K1 at the
      convex path's shapes (8, 1000) and (1, 90), float64 and float32,
      SAGA off and on, decay 0 and 2e-4, prox none / l1 / elasticnet /
@@ -32,10 +33,11 @@ Phases, each of which raises on failure:
      bfloat16 at hd 256 (recurrentgemma-2b's 10 / 1 heads): <= 1e-4 in
      float32, 2e-2 in bf16. K1's bfloat16 lane (bf16 state, float32 g,
      g_old bf16 or float32) at (2, 2**20): <= one bf16 ulp of the largest
-     magnitude. K4 at Mamba2-130M's training shape (B 4, S 2048, 24 heads,
-     P 64, N 128, chunk 64), at S 2000 and at the reduced config's shape
-     (P 16, N 16, chunk 8): <= 1e-4 absolute and relative, the reference's
-     kernel tolerance;
+     magnitude. K4 (3xTF32 on the tensor cores) at Mamba2-130M's training
+     shape (B 4, S 2048, 24 heads, P 64, N 128, chunk 64), at S 2000, at
+     the reduced config's shape (P 16, N 16, chunk 8) and at the training
+     shape with fast-decaying heads (dt >= 4, exp(L) underflows): <= 1e-4
+     absolute and relative, the reference's kernel tolerance;
   4. convex main path, float64, through ``repro_torch.solve`` with
      fused=True:
      CentralVR-Sync (Algorithm 2) at p=8 on the paper's §6.2
@@ -72,7 +74,12 @@ Phases, each of which raises on failure:
      attention``; timed as a yardstick only; none for K1 and K4) and its
      largest error against the plain version; K2 also at 8192 x 768 and
      K3 also in float32 and at hd 256 (``other_shapes``). K3's ``[time]``
-     lines give its TFLOP/s and share of the bound beside SDPA's.
+     lines give its TFLOP/s and share of the bound beside SDPA's. K4's
+     give its bound on the tensor cores (bytes; the TF32 operations bound
+     and the 3xTF32 floor beside it, and the float32 figure of its first
+     port, 67 TFLOP/s outside the tensor cores), its share of the bound,
+     its launches per call (one: the state passes between chunks inside
+     the launch) and the fused Mamba2-130M run's peak memory.
 
 With ``--profile`` it then traces 2000 fused inner steps of each convex
 path and one fused epoch of each full-width LM (Qwen2 width, Mamba2-130M,
@@ -97,9 +104,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core FLOP/s
-# by type, and dense bf16 on the tensor cores
+# by type, and dense bf16 and TF32 on the tensor cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bf16_tensor": 989e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bf16_tensor": 989e12,
+              "tf32_tensor": 495e12}
 # operations per element of the main path's launch (saga off, no prox):
 # v = g - g_old + gbar (2), x*scale - eta*v (3), gtilde + g*inv_m (2)
 VR_OPS_PER_ELEMENT = 7
@@ -156,16 +164,20 @@ def phase_build(kernels):
                 entry = line.split("'")[1]
             elif "spill" in line or ("ptxas" in line and "Used" in line):
                 log(f"[build]   {name}: {entry[-60:]}: {line.strip()}")
-    fa_lib = libs[list(kernels).index("flash_attention")]
-    sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"),
-                           "-sass", str(fa_lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    log(f"[build] {fa_lib.name}: {hgmma} HGMMA instructions in its SASS "
-        f"(cuobjdump -sass)")
-    if not hgmma:
-        raise AssertionError("flash_attention's SASS has no HGMMA: the bf16 "
-                             "path does not issue wgmma")
+    # tensor-core instructions in the SASS: K3's wgmma, K4's mma.sync
+    for name, op, what in (("flash_attention", "HGMMA", "the bf16 path does "
+                            "not issue wgmma"),
+                           ("ssd_scan", "HMMA", "the scan's products are "
+                            "not on the tensor cores")):
+        lib = libs[list(kernels).index(name)]
+        sass = subprocess.run([str(Path(build.nvcc()).parent / "cuobjdump"),
+                               "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        count = sum(op in line for line in sass.splitlines())
+        log(f"[build] {lib.name}: {count} {op} instructions in its SASS "
+            f"(cuobjdump -sass)")
+        if not count:
+            raise AssertionError(f"{name}'s SASS has no {op}: {what}")
     return dt
 
 
@@ -341,12 +353,13 @@ def phase_compare_vr_bf16(torch, vr_kernel, vr_ref):
     return worst
 
 
-def ssd_inputs(torch, B, S, H, P, N, seed):
+def ssd_inputs(torch, B, S, H, P, N, seed, dt_min=0.0):
     """Inputs of the scan as the block makes them: x, dt = softplus(.),
-    A_log = log(1..H), B and C."""
+    A_log = log(1..H), B and C; dt_min > 0 shifts dt up (fast-decaying
+    heads)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=g, device="cuda")
-    dt = torch.nn.functional.softplus(
+    dt = dt_min + torch.nn.functional.softplus(
         torch.randn(B, S, H, generator=g, device="cuda"))
     A_log = torch.arange(1, H + 1, device="cuda", dtype=torch.float32).log()
     Bc = torch.randn(B, S, N, generator=g, device="cuda")
@@ -367,21 +380,22 @@ def ssd_plain(torch, ssd_ref, x, dt, A_log, Bc, Cc, chunk):
 
 def phase_compare_ssd(torch, ssd_kernel, ssd_ref):
     """K4 (the model-layout entry the block calls) against its plain
-    version: at Mamba2-130M's training shape, at a ragged S, and at the
-    reduced config's shape; returns the largest error at the first."""
+    version: at Mamba2-130M's training shape, at a ragged S, at the
+    reduced config's shape, and at the training shape with fast-decaying
+    heads (dt >= 4); returns the largest error at the first."""
     worst = None
-    for i, (B, S, H, P, N, Q) in enumerate(((4, 2048, 24, 64, 128, 64),
-                                            (4, 2000, 24, 64, 128, 64),
-                                            (4, 256, 16, 16, 16, 8))):
-        ins = ssd_inputs(torch, B, S, H, P, N, seed=10 + i)
+    for i, (B, S, H, P, N, Q, dt_min) in enumerate((
+            (4, 2048, 24, 64, 128, 64, 0.0), (4, 2000, 24, 64, 128, 64, 0.0),
+            (4, 256, 16, 16, 16, 8, 0.0), (4, 2048, 24, 64, 128, 64, 4.0))):
+        ins = ssd_inputs(torch, B, S, H, P, N, seed=10 + i, dt_min=dt_min)
         y = ssd_kernel.ssd_scan(*ins, chunk=Q)
         torch.cuda.synchronize()
         want = ssd_plain(torch, ssd_ref, *ins, Q)
         err = (y - want).abs()
         excess = (err - SSD_TOL * (1.0 + want.abs())).max().item()
-        log(f"[compare] ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={Q}: "
-            f"max abs err {err.max().item()!r}, largest |y| "
-            f"{want.abs().max().item()!r} (tolerance {SSD_TOL} abs and "
+        log(f"[compare] ssd_scan B={B} S={S} H={H} P={P} N={N} chunk={Q} "
+            f"dt_min={dt_min}: max abs err {err.max().item()!r}, largest "
+            f"|y| {want.abs().max().item()!r} (tolerance {SSD_TOL} abs and "
             f"relative)")
         if not excess <= 0:
             raise AssertionError(f"ssd_scan S={S} P={P} N={N}: error above "
@@ -773,12 +787,22 @@ def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128,
 def time_ssd(torch, ssd_kernel, ssd_ref, B=4, S=2048, H=24, P=64, N=128,
              Q=64):
     """K4 at Mamba2-130M's training shape, as the block calls it (the
-    model-layout entry); plain version on the same inputs. The bound
-    counts the causal halves of C B^T and w x (the Q(Q+1)/2 visible
-    pairs), C h^T and the state update, in float32 outside the tensor
-    cores; the bytes are la, x, B, C read and y written once."""
+    model-layout entry); plain version on the same inputs. The operations
+    count the causal halves of C B^T and w x (the Q(Q+1)/2 visible pairs),
+    C h^T and the state update; the bytes are la, x, B, C read and y
+    written once. The bound is the larger of the bytes at HBM's rate and
+    the operations at the TF32 tensor-core rate (the kernel's products run
+    there); beside it, the 3xTF32 floor (three passes of every product)
+    and the figure of the first port, float32 outside the tensor cores."""
     ins = ssd_inputs(torch, B, S, H, P, N, seed=20)
     kernel = lambda: ssd_kernel.ssd_scan(*ins, chunk=Q)        # noqa: E731
+    before = ssd_kernel.launches
+    kernel()
+    torch.cuda.synchronize()
+    per_call = ssd_kernel.launches - before
+    if per_call != 1:
+        raise AssertionError(f"ssd_scan launched {per_call} kernels in one "
+                             f"call, expected 1")
     rec = {"ms": graph_ms(torch, kernel, calls=20, replays=10),
            "plain_ms": graph_ms(torch, lambda: ssd_plain(
                torch, ssd_ref, *ins, Q), calls=2, replays=3),
@@ -788,15 +812,22 @@ def time_ssd(torch, ssd_kernel, ssd_ref, B=4, S=2048, H=24, P=64, N=128,
     flops = 2 * B * H * nc * (pairs * (N + P) + 2 * Q * N * P)
     nbytes = 4 * (B * S * H + 2 * B * S * H * P + 2 * B * S * N)
     bytes_s = nbytes / PEAK_BYTES_S
-    ops_s = flops / PEAK_FLOPS["float32"]
+    ops_s = flops / PEAK_FLOPS["tf32_tensor"]
     rec.update(shape=[B, S, H, P, N, Q], dtype="float32", flops=flops,
                bytes=nbytes, bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="bytes" if bytes_s >= ops_s else "operations",
-               library_ms=None)
+               bound_3xtf32_ms=3 * ops_s * 1e3,
+               bound_float32_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+               launches_per_call=per_call, library_ms=None)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     log(f"[time] ssd_scan {rec['shape']} float32: kernel {rec['ms']!r} "
-        f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python; "
-        f"plain {rec['plain_ms']!r} ms; bound {rec['bound_ms']!r} ms "
-        f"({rec['bound_by']}, {flops} flop, {nbytes} bytes)")
+        f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python, "
+        f"{per_call} launch per call; plain {rec['plain_ms']!r} ms; bound "
+        f"{rec['bound_ms']!r} ms ({rec['bound_by']}, {nbytes} bytes; "
+        f"{flops} flop: {ops_s * 1e3!r} ms at TF32, 3xTF32 floor "
+        f"{rec['bound_3xtf32_ms']!r} ms, float32 outside the tensor cores "
+        f"{rec['bound_float32_ms']!r} ms), {rec['bound_share']!r} of the "
+        f"bound")
     return rec
 
 
@@ -1049,6 +1080,7 @@ def main():
     for run in lm:
         for name, n in run["counts"].items():
             total[name] += n
+    mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
     lm_paths = [{k: r[k] for k in ("label", "counts", "per_step", "steps",
                                    "steps_s", "unfused_steps_s",
                                    "peak_bytes",
@@ -1098,7 +1130,11 @@ def main():
         "launches": total["ssd_scan"], "max_abs_err": ssd_err,
         **{k: ssd_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shape", "dtype",
-                                    "eager_ms")}}]}))
+                                    "eager_ms", "bound_3xtf32_ms",
+                                    "bound_float32_ms", "bound_share",
+                                    "launches_per_call")},
+        "fused_peak_bytes": mamba["peak_bytes"],
+        "unfused_peak_bytes": mamba["unfused_peak_bytes"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

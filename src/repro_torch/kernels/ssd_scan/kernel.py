@@ -1,11 +1,21 @@
-"""K4 wrapper: build, argument checks, launch and launch count of the
-hand-written CUDA kernel ``csrc/ssd_scan.cu``, the Mamba2 SSD chunk scan.
+"""K4 wrapper: build, argument checks, launch plan, launch and launch count
+of the hand-written CUDA kernel ``csrc/ssd_scan.cu``, the Mamba2 SSD chunk
+scan.
 
 Replaces the Pallas TPU kernel ``_ssd_kernel`` of
 ``src/repro/kernels/ssd_scan/kernel.py`` (``ssd_scan``), and its wrapper
-``ops.py``. Its bound on an H100 is operations: 3.67 MFLOP per (row,
-chunk) at Q = 64, P = 64, N = 128, so 11.3 GFLOP at Mamba2-130M's
-training shape, 168 us at 67 TFLOP/s of float32 (see the source's note).
+``ops.py``. At Mamba2-130M's training shape (B 4, S 2048, H 24, P 64,
+N 128, chunk 64) its bound on an H100 is bytes: 109.8 MB in and out, 32.8
+us at 3.35 TB/s, against 8.90 GFLOP, 18.0 us at 495 TFLOP/s of TF32 (53.9
+us for the three passes of 3xTF32; see the source's note).
+
+The kernel runs the chunks in parallel: one block per (chunk, batch row,
+group of heads, 64 columns of P), the products on the tensor cores in
+3xTF32, and the state passed from chunk to chunk inside the one launch by
+chunk-ordered look-back. :func:`launch_plan` sizes the grid, the head
+groups and the scratch: a zeroed ticket and flag per (chunk, row, head,
+P tile), and two slots of states per (row, head), allocated in every
+call.
 
 Two entries, as the reference has:
 
@@ -39,6 +49,9 @@ from repro_torch.kernels.ssd_scan import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 MAX_CHUNK = 64
 MAX_STATE = 128
+# most heads one block takes (they share the chunk's scores C B^T)
+HEADS_PER_BLOCK = 6
+P_TILE = 64                 # columns of P per block (kPT in the source)
 
 # kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
@@ -56,7 +69,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(kbuild.build(SOURCE)[0]))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.ssd_scan_launch.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 6
+        lib.ssd_scan_launch.argtypes = ([ptr] * 7 + [i32] * 7 + [i64] * 6
                                         + [ptr])
         lib.ssd_scan_launch.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
@@ -77,6 +90,25 @@ def check_supported(chunk: int, state: int, head: int) -> None:
     if head % 4:
         raise ValueError(f"ssd_scan: head size {head} is not a multiple "
                          f"of 4")
+
+
+def launch_plan(B: int, S: int, H: int, P: int, N: int,
+                chunk: int) -> dict:
+    """The kernel's grid and scratch: H split into the fewest groups of at
+    most ``HEADS_PER_BLOCK`` heads, as even as they go (the last may be
+    smaller); P in tiles of ``P_TILE``; one block per (chunk, row, head
+    group, P tile). ``flags`` is the number of look-back flags (every
+    chunk but the last publishes its state per (row, head, P tile)),
+    after one ticket counter; ``state_floats`` the scratch of the states
+    passed between chunks, which take turns in two slots."""
+    chunks = -(-S // chunk)
+    heads = -(-H // -(-H // HEADS_PER_BLOCK))
+    groups = -(-H // heads)
+    p_tiles = -(-P // P_TILE)
+    return dict(chunks=chunks, heads_per_block=heads, head_groups=groups,
+                p_tiles=p_tiles, blocks=chunks * B * groups * p_tiles,
+                flags=(chunks - 1) * B * H * p_tiles,
+                state_floats=min(chunks - 1, 2) * B * H * P * N)
 
 
 def _check_device(*named):
@@ -109,9 +141,16 @@ def _launch(la, x, Bc, Cc, y, B, S, H, P, N, chunk, la_strides, x_strides):
     if y.numel() == 0:
         return y
     lib = _load()
+    plan = launch_plan(B, S, H, P, N, chunk)
+    # the ticket and the flags start at zero in every call (a CUDA graph
+    # replays the fill); the states need no fill
+    sync = torch.zeros(1 + plan["flags"], dtype=torch.int32, device=x.device)
+    states = torch.empty(plan["state_floats"], dtype=torch.float32,
+                         device=x.device)
     err = lib.ssd_scan_launch(
         la.data_ptr(), x.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-        y.data_ptr(), B, S, H, P, N, chunk, *la_strides, *x_strides,
+        y.data_ptr(), states.data_ptr(), sync.data_ptr(), B, S, H, P, N,
+        chunk, plan["heads_per_block"], *la_strides, *x_strides,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan: launch failed: "

@@ -218,47 +218,92 @@ def test_flash_kernel_float32_and_hd256_match_plain(device, B, S, H, KV, hd,
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
 
 
-def _ssd_inputs(device, B, S, H, P, N, seed=0):
+def _ssd_inputs(device, B, S, H, P, N, seed=0, dt_min=0.0):
+    """dt = dt_min + softplus(normal): dt_min 4 gives fast-decaying heads
+    (la <= -4 h per step for head h, so exp(L) underflows in a chunk)."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn(B, S, H, P, generator=g, device=device)
-    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g,
-                                                  device=device))
+    dt = dt_min + torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=device))
     A_log = torch.arange(1, H + 1, device=device, dtype=torch.float32).log()
     Bc = torch.randn(B, S, N, generator=g, device=device)
     Cc = torch.randn(B, S, N, generator=g, device=device)
     return x, dt, A_log, Bc, Cc
 
 
-@pytest.mark.parametrize("B,S,H,P,N,chunk", [
-    (4, 2048, 24, 64, 128, 64),     # Mamba2-130M's training shape
-    (4, 2000, 24, 64, 128, 64),     # S not a multiple of the chunk
-    (4, 256, 16, 16, 16, 8),        # mamba2-130m.reduced()
-    (1, 40, 3, 40, 24, 16),         # P not a multiple of the 32-column tile
+def _ssd_plain(x, dt, A_log, Bc, Cc, chunk):
+    """K4's flat plain version on the model-layout inputs."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    B, S, H, P = x.shape
+    la = -torch.exp(A_log)[None, None, :] * dt
+    return ssd_ref.ssd_scan_ref(
+        la.transpose(1, 2).reshape(B * H, S),
+        (x * dt[..., None]).transpose(1, 2).reshape(B * H, S, P), Bc, Cc,
+        chunk=chunk).reshape(B, H, S, P).transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,dt_min", [
+    (4, 2048, 24, 64, 128, 64, 0.0),    # Mamba2-130M's training shape
+    (4, 2000, 24, 64, 128, 64, 0.0),    # S not a multiple of the chunk
+    (4, 256, 16, 16, 16, 8, 0.0),       # mamba2-130m.reduced()
+    (1, 40, 3, 40, 24, 16, 0.0),        # P not a multiple of the tile
+    (2, 512, 24, 64, 128, 64, 4.0),     # fast-decaying heads: exp(L) -> 0
+    (2, 512, 4, 64, 128, 32, 0.0),      # chunk 32
+    (2, 64, 4, 64, 128, 64, 0.0),       # a single chunk
+    (2, 40, 4, 64, 128, 64, 0.0),       # S below the chunk
+    (1, 1024, 1, 64, 128, 64, 0.0),     # B 1, H 1: one chain of chunks
+    (1, 256, 2, 128, 64, 64, 0.0),      # P 128: two tiles of columns
 ])
-def test_ssd_scan_kernel_matches_plain(device, B, S, H, P, N, chunk):
+def test_ssd_scan_kernel_matches_plain(device, B, S, H, P, N, chunk, dt_min):
     """The model-layout entry (the block's) against the flat plain
     version on the same inputs, within the reference's kernel tolerance
     (tests/test_kernels.py)."""
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     torch.backends.cuda.matmul.allow_tf32 = False
-    x, dt, A_log, Bc, Cc = _ssd_inputs(device, B, S, H, P, N)
+    x, dt, A_log, Bc, Cc = _ssd_inputs(device, B, S, H, P, N, dt_min=dt_min)
     before = ssd_kernel.launches
     y = ssd_kernel.ssd_scan(x, dt, A_log, Bc, Cc, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd_kernel.launches == before + 1
-    la = -torch.exp(A_log)[None, None, :] * dt
-    want = ssd_ref.ssd_scan_ref(
-        la.transpose(1, 2).reshape(B * H, S),
-        (x * dt[..., None]).transpose(1, 2).reshape(B * H, S, P), Bc, Cc,
-        chunk=chunk).reshape(B, H, S, P).transpose(1, 2)
+    want = _ssd_plain(x, dt, A_log, Bc, Cc, chunk)
+    assert torch.isfinite(y).all()
     torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-4)
+    la = -torch.exp(A_log)[None, None, :] * dt
     flat = ssd_kernel.ssd_scan_flat(
         la.transpose(1, 2).reshape(B * H, S).contiguous(),
         (x * dt[..., None]).transpose(1, 2).reshape(B * H, S, P)
         .contiguous(), Bc, Cc, chunk=chunk)
     torch.testing.assert_close(flat.reshape(B, H, S, P).transpose(1, 2), y,
                                rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_scan_in_a_cuda_graph_matches_plain_on_every_replay(device):
+    """ssd_scan captured in a CUDA graph, replayed twice on changed inputs:
+    the graph replays the zeroing of the look-back ticket and flags, so
+    each replay agrees with the plain version on its own inputs."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, P, N, chunk = 2, 512, 24, 64, 128, 64
+    static = _ssd_inputs(device, B, S, H, P, N, seed=7)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_kernel.ssd_scan(*static, chunk=chunk)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd_kernel.ssd_scan(*static, chunk=chunk)
+    for seed in (8, 9):
+        fresh = _ssd_inputs(device, B, S, H, P, N, seed=seed,
+                            dt_min=4.0 if seed == 9 else 0.0)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        before = ssd_kernel.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert ssd_kernel.launches == before     # a replay calls no wrapper
+        torch.testing.assert_close(out, _ssd_plain(*fresh, chunk),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_fused_mamba2_step_launches_k4_and_matches_unfused(device):

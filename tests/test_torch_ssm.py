@@ -147,6 +147,157 @@ def test_ssd_scan_wrapper_checks_its_operands():
         tstep._check_kernel_shapes(dataclasses.replace(cfg, ssm_chunk=128))
 
 
+def _tf32_rna(a):
+    """Round a float32 tensor's mantissa to TF32's 10 bits, to nearest
+    with ties away from zero (cvt.rna.tf32.f32 on finite values)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel forms it: each operand split into hi =
+    rna(v) and lo = rna(v - hi), the sum hi lo + lo hi + hi hi (each
+    product of two TF32 values is exact in float32)."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    """a @ b in a single pass of TF32: both operands rounded once."""
+    return _tf32_rna(a) @ _tf32_rna(b)
+
+
+def _ssd_scan_products(la, x, Bc, Cc, chunk, mm):
+    """The plain version (ref.ssd_scan_ref) with every product of a chunk
+    (C B^T, w x, C h^T, x^T (B * d)) taken by ``mm``."""
+    BH, S = la.shape
+    H = BH // Bc.shape[0]
+    rows = torch.arange(BH) // H
+    Bm, Cm = Bc[rows], Cc[rows]
+    Q, P, N = chunk, x.shape[-1], Bm.shape[-1]
+    causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    h = torch.zeros(BH, P, N)
+    ys = []
+    for c0 in range(0, S, Q):
+        sl = slice(c0, c0 + Q)
+        L = torch.cumsum(la[:, sl].double(), -1).float()
+        Bq, Cq, xq = Bm[:, sl], Cm[:, sl], x[:, sl]
+        decay = torch.exp(torch.clamp(L[:, :, None] - L[:, None, :],
+                                      max=0.0))
+        w = torch.where(causal, mm(Cq, Bq.transpose(1, 2)) * decay, 0.0)
+        ys.append(mm(w, xq) + torch.exp(L)[..., None]
+                  * mm(Cq, h.transpose(1, 2)))
+        tot = L[:, -1:]
+        h = (h * torch.exp(tot)[..., None]
+             + mm(xq.transpose(1, 2), Bq * torch.exp(tot - L)[..., None]))
+    return torch.cat(ys, 1)
+
+
+def _flat_inputs(seed, B, S, heads, P, N, dt_min):
+    """Flat la (B*H, S), x (B*H, S, P), Bc, Cc (B, S, N) as the model forms
+    them, for the given A = -heads: dt = dt_min + softplus(normal)."""
+    rng = np.random.default_rng(seed)
+    H = len(heads)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)).astype(np.float32))
+    dt = torch.from_numpy((dt_min + np.logaddexp(
+        rng.standard_normal((B, S, H)), 0)).astype(np.float32))
+    la = -torch.tensor(heads, dtype=torch.float32)[None, None, :] * dt
+    xdt = x * dt[..., None]
+    Bc = torch.from_numpy(rng.standard_normal((B, S, N)).astype(np.float32))
+    Cc = torch.from_numpy(rng.standard_normal((B, S, N)).astype(np.float32))
+    return (la.transpose(1, 2).reshape(B * H, S),
+            xdt.transpose(1, 2).reshape(B * H, S, P), Bc, Cc)
+
+
+@pytest.mark.parametrize("B,S,heads,P,N,chunk,dt_min", [
+    (2, 64, (1, 6, 11, 16), 16, 16, 8, 0.0),         # the reduced config
+    (1, 256, (1, 8, 16, 24), 64, 128, 64, 0.0),      # a full-width slice
+    (1, 256, (1, 8, 16, 24), 64, 128, 64, 4.0),      # with fast heads
+])
+def test_ssd_3xtf32_products_hold_the_tolerance_and_one_pass_does_not(
+        B, S, heads, P, N, chunk, dt_min):
+    """K4's arithmetic, emulated: with every chunk product in 3xTF32 the
+    scan stays within the kernel tolerance (1e-4 abs + rel) of the
+    float32 plain version, at the reduced shape and at Mamba2-130M's widths
+    (heads up to A = -24, fast ones with dt >= 4); with one pass of TF32 it
+    does not, so the tolerance tells the two apart."""
+    la, x, Bc, Cc = _flat_inputs(11, B, S, heads, P, N, dt_min)
+    want = ssd_ref.ssd_scan_ref(la, x, Bc, Cc, chunk=chunk)
+    plain = _ssd_scan_products(la, x, Bc, Cc, chunk, torch.matmul)
+    torch.testing.assert_close(plain, want, rtol=1e-6, atol=1e-5)
+    three = _ssd_scan_products(la, x, Bc, Cc, chunk, _mm_3xtf32)
+    one = _ssd_scan_products(la, x, Bc, Cc, chunk, _mm_1xtf32)
+
+    def excess(got):
+        return ((got - want).abs() - 1e-4 * (1 + want.abs())).max().item()
+    assert torch.isfinite(three).all()
+    assert excess(three) <= 0
+    assert excess(one) > 0
+
+
+def test_tf32_rounding_is_nearest_with_ties_away():
+    a = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -11 - 2 ** -20, 0.0,
+                      1e-40], dtype=torch.float32)
+    got = _tf32_rna(a)
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                         -(1.0 + 2 ** -10), 1.0, 0.0, 0.0],
+                        dtype=torch.float32)
+    assert torch.equal(got[:6], want[:6])
+    assert got[6].item() == pytest.approx(1e-40, rel=2 ** -10)
+    # hi + lo keeps 22 of a normal float's 24 bits: lo is rounded too
+    normal = a[:6]
+    hi = _tf32_rna(normal)
+    lo = _tf32_rna(normal - hi)
+    assert ((hi + lo - normal).abs() <= 2 ** -22 * normal.abs()).all()
+    assert ((hi - normal).abs() > 2 ** -12 * normal.abs()).any()
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,want", [
+    # Mamba2-130M's training shape: 4 groups of 6 heads, 32 chunks
+    (4, 2048, 24, 64, 128, 64, (32, 6, 4, 1, 512, 31 * 96, 2 * 96 * 8192)),
+    (4, 2000, 24, 64, 128, 64, (32, 6, 4, 1, 512, 31 * 96, 2 * 96 * 8192)),
+    # mamba2-130m.reduced(): 16 heads as 6, 6, 4
+    (4, 256, 16, 16, 16, 8, (32, 6, 3, 1, 384, 31 * 64, 2 * 64 * 256)),
+    (1, 40, 3, 40, 24, 16, (3, 3, 1, 1, 3, 2 * 3, 2 * 3 * 960)),
+    (2, 512, 4, 64, 128, 32, (16, 4, 1, 1, 32, 15 * 8, 2 * 8 * 8192)),
+    (2, 128, 4, 64, 128, 64, (2, 4, 1, 1, 4, 8, 8 * 8192)),  # one slot
+    (2, 64, 4, 64, 128, 64, (1, 4, 1, 1, 2, 0, 0)),          # one chunk
+    (2, 40, 4, 64, 128, 64, (1, 4, 1, 1, 2, 0, 0)),          # S < chunk
+    (1, 1024, 1, 64, 128, 64, (16, 1, 1, 1, 16, 15, 2 * 8192)),
+    (1, 256, 7, 128, 16, 64, (4, 4, 2, 2, 16, 3 * 14, 2 * 7 * 2048)),
+    (1, 256, 13, 68, 16, 64, (4, 5, 3, 2, 24, 3 * 26, 2 * 13 * 1088)),
+])
+def test_ssd_launch_plan_pins_every_branch(B, S, H, P, N, chunk, want):
+    """The grid and scratch of K4's launch: chunks, heads per block, head
+    groups, P tiles, blocks, look-back flags, state floats (two slots of
+    (B, H, P, N) from three chunks on, one with two, none with one)."""
+    plan = ssd_kernel.launch_plan(B, S, H, P, N, chunk)
+    assert tuple(plan[k] for k in ("chunks", "heads_per_block",
+                                   "head_groups", "p_tiles", "blocks",
+                                   "flags", "state_floats")) == want
+    # the groups cover every head, and none is empty
+    hpb, groups = plan["heads_per_block"], plan["head_groups"]
+    assert hpb <= ssd_kernel.HEADS_PER_BLOCK
+    assert (groups - 1) * hpb < H <= groups * hpb
+
+
+def test_ssd_source_constants_match_the_wrapper():
+    """The wrapper's limits and P tile are the kernel source's."""
+    import re
+    src = ssd_kernel.SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kPT") == ssd_kernel.P_TILE
+    assert const("kMaxQ") == ssd_kernel.MAX_CHUNK
+    assert const("kMaxN") == ssd_kernel.MAX_STATE
+    # the kernel derives the plan's groups and tiles as launch_plan does
+    assert "G = (H + hpb - 1) / hpb" in src
+    assert "PT = (P + kPT - 1) / kPT" in src
+
+
 def test_kernels_package_exports_the_model_layout_entry():
     from repro_torch import kernels
     assert kernels.__getattr__("ssd_scan") is ssd_kernel.ssd_scan
