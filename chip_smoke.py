@@ -16,9 +16,10 @@ Phases, each of which raises on failure:
      (mma.sync) instructions in K4's (``cuobjdump -sass``; each must be
      above 0);
   3. each kernel against its plain PyTorch version on the card. K1 at the
-     convex path's shapes (8, 1000) and (1, 90), float64 and float32,
-     SAGA off and on, decay 0 and 2e-4, prox none / l1 / elasticnet /
-     box: largest absolute error <= 1e-12 in float64, <= 1e-6 of the
+     convex path's shapes (8, 1000) and (1, 90), float64 and float32, and
+     (1, 1000) and (1, 20) (the single-worker events of Algorithms 3 and
+     5, the Fig. 1 panel) in float64, SAGA off and on, decay 0 and 2e-4,
+     prox none / l1 / elasticnet / box: largest absolute error <= 1e-12 in float64, <= 1e-6 of the
      largest magnitude in float32; and at the LM steps' shapes, (1,
      1,556,113,920) and (2, N of ``qwen2-7b.reduced()``) float32 as the
      centralvr step launches it, x' and gtilde' within 1e-6 of their
@@ -47,7 +48,21 @@ Phases, each of which raises on failure:
      steps; the trajectory must match the unfused run with the same
      visit orders to 1e-9; every rel must be finite and the last below
      the first;
-  5. LM main path: CentralVR training of the Qwen2-7B-width model cut to
+  5. the rest of the convex family through ``repro_torch.solve``, each
+     VR run fused and then unfused on the same draws: the paper's Fig. 1
+     panel on ``toy-logistic`` (n 5000, d 20; CentralVR, SVRG with
+     snapshot last, SAGA, SGD; 10 epochs) and §6.2's
+     ``dist-toy-logistic`` at p=8 (CentralVR-Async round-robin, 2 rounds;
+     D-SVRG, tau 2*ns, 3 rounds; D-SAGA with instant and with stale
+     fetch, tau 100, 20 rounds; distributed SGD, EASGD and PS-SVRG, 2
+     rounds each). K1 must launch exactly once per fused inner step (SVRG
+     and SAGA epochs * n, CentralVR-Async rounds * p * ns, D-SVRG rounds *
+     tau with the 8 workers in one launch, D-SAGA rounds * p * tau) and
+     never for an unfused run or SGD, distributed SGD, EASGD or PS-SVRG;
+     fused and unfused within 1e-9; every rel finite, the last below the
+     first for each VR algorithm. Prints each run's rels, gradient
+     evaluations per round, inner steps/s and launches;
+  6. LM main path: CentralVR training of the Qwen2-7B-width model cut to
      2 layers (1,556,113,920 parameters, float32 masters, bfloat16
      compute) through ``train.step.make_epoch_runner(fused=True)`` at
      W=1, M=2, seq 1024, global batch 2, microbatch 1, remat "block": 2
@@ -66,14 +81,18 @@ Phases, each of which raises on failure:
      (A = 2), the same gates, with launches per step K1 1, K2
      (L + 1 + L) * A * W = 196, K4 (L + L) * A * W = 192; and W=2 at
      ``mamba2-130m.reduced()``;
-  6. the ``kernels`` line: per kernel its launches on the main paths, its
+  7. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape), its bound on this
      card, the time of the one PyTorch call that computes the same
      function where there is one (``F.rms_norm``, ``F.scaled_dot_product_
      attention``; timed as a yardstick only; none for K1 and K4) and its
-     largest error against the plain version; K2 also at 8192 x 768 and
-     K3 also in float32 and at hd 256 (``other_shapes``). K3's ``[time]``
+     largest error against the plain version; K1 also at (1, 90),
+     (1, 1000) and (1, 20) float64 and at the LM steps' shapes, among
+     them Mamba2-130M's (2, 128,983,488) float32, K2 also at 8192 x 768
+     and K3 also in float32 and at hd 256 (``other_shapes``); K1's
+     ``paths`` give each convex run's launches, inner steps/s and
+     gradient evaluations per round. K3's ``[time]``
      lines give its TFLOP/s and share of the bound beside SDPA's. K4's
      give its bound on the tensor cores (bytes; the TF32 operations bound
      and the 3xTF32 floor beside it, and the float32 figure of its first
@@ -193,8 +212,11 @@ def read_counts(kernels):
 def phase_compare(torch, np, vr_kernel, vr_ref, proxops):
     worst = {"float64": 0.0, "float32": 0.0}
     cases = 0
-    for shape in ((8, 1000), (1, 90)):
-        for dtype in (torch.float64, torch.float32):
+    for shape, dtypes in (((8, 1000), (torch.float64, torch.float32)),
+                          ((1, 90), (torch.float64, torch.float32)),
+                          ((1, 1000), (torch.float64,)),
+                          ((1, 20), (torch.float64,))):
+        for dtype in dtypes:
             for saga in (False, True):
                 for decay in (0.0, 2e-4):
                     for prox in (None, "l1:0.05", "elasticnet:0.05:0.3",
@@ -405,52 +427,76 @@ def phase_compare_ssd(torch, ssd_kernel, ssd_ref):
     return worst
 
 
-def drive(torch, solve, spec_kw, cfg, orders, kernels, label):
-    """One main-path run with the kernel and its unfused twin on the same
-    orders; returns the fused run's record."""
+def drive(torch, solve, spec_kw, cfg, orders, kernels, label, *, launches,
+          inner_steps, evals, vr=True):
+    """One main-path run through ``solve`` on the given draws: the fused
+    run and, for a VR algorithm, its unfused twin on the same draws (the
+    other algorithms have no fused form). Gates: K1 launched exactly
+    ``launches`` times (one per fused inner step) and no other kernel,
+    the unfused twin launched nothing, fused and unfused within 1e-9,
+    every rel finite, for a VR algorithm the last below the first, and
+    the run on the card. ``inner_steps`` counts the run's inner steps
+    (init epoch included; workers stepping together count once) and
+    ``evals`` its gradient evaluations per round (Table 1). Returns the
+    run's record."""
     import numpy as np
 
     from repro_torch import RunSpec
 
-    steps = ROUNDS * cfg.n          # one launch per inner step
-    total = (ROUNDS + 1) * cfg.n    # inner steps with the init epoch
-
+    rounds = spec_kw["rounds"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
     t0 = time.perf_counter()
-    fused = solve(RunSpec(fused=True, **spec_kw), cfg, orders=orders)
+    first = solve(RunSpec(fused=True, **spec_kw) if vr
+                  else RunSpec(**spec_kw), cfg, orders=orders)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts(kernels)
-    launches = counts["vr_update"]
     peak = torch.cuda.max_memory_allocated()
-    if launches != steps or fused.launches["vr_update"] != steps:
-        raise AssertionError(f"{label}: vr_update launched {launches} times, "
-                             f"expected one per inner step ({steps})")
+    if counts["vr_update"] != launches or \
+            first.launches["vr_update"] != launches:
+        raise AssertionError(f"{label}: vr_update launched "
+                             f"{counts['vr_update']} times, expected "
+                             f"{launches} (one per fused inner step)")
     if any(n for name, n in counts.items() if name != "vr_update"):
         raise AssertionError(f"{label}: launched LM kernels: {counts}")
-    t1 = time.perf_counter()
-    unfused = solve(RunSpec(fused=False, **spec_kw), cfg, orders=orders)
-    torch.cuda.synchronize()
-    wall_u = time.perf_counter() - t1
-    rels, rels_u = fused.rels, unfused.rels
-    diff = max(float(abs(rels - rels_u).max()),
-               float(abs(fused.x - unfused.x).max()))
+    if first.device != torch.cuda.get_device_name(0):
+        raise AssertionError(f"{label}: ran on {first.device}")
+    rels = first.rels
     log(f"[path] {label}: rels {[float(r) for r in rels]}")
-    log(f"[path] {label}: unfused rels {[float(r) for r in rels_u]}")
-    log(f"[path] {label}: fused wall {wall:.3f} s ({total / wall:.1f} inner "
-        f"steps/s, init epoch included), unfused wall {wall_u:.3f} s, "
-        f"launches {launches}, peak memory {peak / 2**20:.1f} MiB, "
-        f"max |fused - unfused| {diff!r}, eta {fused.spec.eta!r}")
-    if not (len(rels) == ROUNDS and np.isfinite(rels).all()):
+    diff, wall_u = 0.0, None
+    if vr:
+        reset_counts(kernels)
+        t1 = time.perf_counter()
+        unfused = solve(RunSpec(fused=False, **spec_kw), cfg, orders=orders)
+        torch.cuda.synchronize()
+        wall_u = time.perf_counter() - t1
+        if any(read_counts(kernels).values()):
+            raise AssertionError(f"{label}: the unfused run launched "
+                                 f"{read_counts(kernels)}")
+        diff = max(float(abs(rels - unfused.rels).max()),
+                   float(abs(first.x - unfused.x).max()))
+        log(f"[path] {label}: unfused rels "
+            f"{[float(r) for r in unfused.rels]}")
+    rate = inner_steps / wall
+    log(f"[path] {label}: {'fused ' if vr else ''}wall {wall:.3f} s "
+        f"({rate:.1f} inner steps/s, {inner_steps} inner steps), "
+        + (f"unfused wall {wall_u:.3f} s ({inner_steps / wall_u:.1f} inner "
+           f"steps/s), " if vr else "")
+        + f"K1 launches {counts['vr_update']}, gradient evaluations per "
+        f"round {evals}, peak memory {peak / 2**20:.1f} MiB, max |fused - "
+        f"unfused| {diff!r}, eta {first.spec.eta!r}")
+    if not (len(rels) == rounds and np.isfinite(rels).all()):
         raise AssertionError(f"{label}: rels not finite: {rels}")
-    if not rels[-1] < rels[0]:
+    if vr and not rels[-1] < rels[0]:
         raise AssertionError(f"{label}: no progress, rels {rels}")
     if not diff <= 1e-9:
         raise AssertionError(f"{label}: fused and unfused differ by {diff}")
-    return dict(label=label, launches=launches, wall_s=wall,
-                unfused_wall_s=wall_u, steps=steps, peak_bytes=peak,
+    return dict(label=label, launches=counts["vr_update"], wall_s=wall,
+                unfused_wall_s=wall_u, steps=launches,
+                inner_steps=inner_steps, inner_steps_s=rate,
+                evals_per_round=evals, peak_bytes=peak,
                 rels=[float(r) for r in rels], max_diff=diff)
 
 
@@ -468,11 +514,86 @@ def phase_main_path(torch, kernels):
     return [
         drive(torch, solve, dict(algo="centralvr_sync", p=dist.workers,
                                  rounds=ROUNDS), dist, sync_orders, kernels,
-              "centralvr_sync p=8 dist-toy-logistic (5000x1000 per worker)"),
+              "centralvr_sync p=8 dist-toy-logistic (5000x1000 per worker)",
+              launches=ROUNDS * dist.n, inner_steps=(ROUNDS + 1) * dist.n,
+              evals=dist.workers * dist.n),
         drive(torch, solve, dict(algo="centralvr", rounds=ROUNDS), ms,
-              cvr_orders, kernels,
-              "centralvr millionsong (46371x90)"),
+              cvr_orders, kernels, "centralvr millionsong (46371x90)",
+              launches=ROUNDS * ms.n, inner_steps=(ROUNDS + 1) * ms.n,
+              evals=ms.n),
     ]
+
+
+def phase_family(torch, kernels):
+    """The rest of the convex family through ``solve`` on the paper's
+    settings: the Fig. 1 panel on ``toy-logistic`` (n 5000, d 20),
+    CentralVR against SVRG (snapshot last), SAGA and SGD, 10 epochs each;
+    and §6.2's ``dist-toy-logistic`` (p 8, 5000 x 1000 per worker):
+    CentralVR-Async round-robin (2 rounds), D-SVRG (tau 2*ns, 3 rounds),
+    D-SAGA with instant and stale fetch (tau 100, 20 rounds), distributed
+    SGD, EASGD (tau 16) and PS-SVRG (2 rounds each). Every run's draws
+    are made once and given to the fused run and its unfused twin."""
+    from repro_torch import solve
+    from repro_torch.configs.paper_convex import PRESETS
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import centralvr
+    from repro_torch.core import distributed as ds
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toy, dist = PRESETS["toy-logistic"], PRESETS["dist-toy-logistic"]
+    n, E = toy.n, ROUNDS
+    p, ns = dist.workers, dist.n
+    tau_dsvrg, tau_dsaga, tau_easgd = 2 * ns, 100, 16
+    blocks = max(ns // tau_easgd, 1)
+    # (label, spec, cfg, draws, K1 launches, inner steps, gradient
+    #  evaluations per round, VR algorithm)
+    runs = [
+        ("centralvr toy-logistic (5000x20)",
+         dict(algo="centralvr", rounds=E), toy,
+         centralvr.draw_orders(gen, n, E), E * n, (E + 1) * n, n, True),
+        ("svrg toy-logistic (snapshot last)",
+         dict(algo="svrg", rounds=E, snapshot="last"), toy,
+         bl.draw_svrg_orders(gen, n, E, n), E * n, E * n, 3 * n, True),
+        ("saga toy-logistic", dict(algo="saga", rounds=E), toy,
+         bl.draw_saga_orders(gen, n, E), E * n, E * n, n, True),
+        ("sgd toy-logistic", dict(algo="sgd", rounds=E), toy,
+         bl.draw_sgd_orders(gen, n, E), 0, E * n, n, False),
+        ("centralvr_async p=8 dist-toy-logistic (round-robin)",
+         dict(algo="centralvr_async", p=p, rounds=2), dist,
+         ds.draw_async_orders(gen, p, ns, 2), 2 * p * ns, ns + 2 * p * ns,
+         p * ns, True),
+        ("dsvrg p=8 dist-toy-logistic (tau 2*ns)",
+         dict(algo="dsvrg", p=p, rounds=3), dist,
+         ds.draw_dsvrg_orders(gen, p, ns, 3, tau_dsvrg), 3 * tau_dsvrg,
+         3 * tau_dsvrg, p * ns + 2 * p * tau_dsvrg, True),
+    ]
+    for fetch in ("instant", "stale"):
+        runs.append((
+            f"dsaga p=8 dist-toy-logistic (fetch {fetch}, tau 100)",
+            dict(algo="dsaga", p=p, rounds=20, tau=tau_dsaga, fetch=fetch),
+            dist, ds.draw_dsaga_orders(gen, p, ns, 20, tau_dsaga),
+            20 * p * tau_dsaga, 20 * p * tau_dsaga, p * tau_dsaga, True))
+    runs += [
+        ("dist_sgd p=8 dist-toy-logistic (tau ns)",
+         dict(algo="dist_sgd", p=p, rounds=2), dist,
+         bl.draw_dist_sgd_orders(gen, p, ns, 2, ns), 0, 2 * ns, p * ns,
+         False),
+        ("easgd p=8 dist-toy-logistic (tau 16)",
+         dict(algo="easgd", p=p, rounds=2), dist,
+         bl.draw_easgd_orders(gen, p, ns, 2, tau_easgd), 0,
+         2 * blocks * tau_easgd, p * blocks * tau_easgd, False),
+        ("ps_svrg p=8 dist-toy-logistic (2*ns steps)",
+         dict(algo="ps_svrg", p=p, rounds=2), dist,
+         bl.draw_ps_svrg_orders(gen, p, ns, 2), 0, 2 * 2 * ns,
+         p * ns + 2 * p * 2 * ns, False),
+    ]
+    t0 = time.perf_counter()
+    out = [drive(torch, solve, spec, cfg, draws, kernels, label,
+                 launches=launches, inner_steps=steps, evals=evals, vr=vr)
+           for label, spec, cfg, draws, launches, steps, evals, vr in runs]
+    log(f"[path] convex family: {len(out)} runs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def lm_run(torch, cfg, tcfg, W, fused, kernels, sample):
@@ -1058,9 +1179,16 @@ def main():
                                 (2, model.ParamLayout(reduced).n),
                                 timed=False)
     paths = phase_main_path(torch, kernels)
+    paths += phase_family(torch, kernels)
     lm = phase_lm(torch, kernels)
+    (mamba_full, _), _ = mamba_configs()
+    mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
+                               (2, model.ParamLayout(mamba_full).n),
+                               timed=True)
     sync_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (8, 1000))
     cvr_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 90))
+    event_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 1000))
+    toy_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 20))
     rms_time = time_rmsnorm(torch, rms_kernel, rms_ref)
     rms_mamba_time = time_rmsnorm(torch, rms_kernel, rms_ref, 8192, 768)
     fa_time = time_flash(torch, fa_kernel, fa_ref)
@@ -1098,9 +1226,12 @@ def main():
         "bound_by": sync_shape["bound_by"], "library_ms": None,
         "shape": sync_shape["shape"], "dtype": "float64",
         "eager_ms": sync_shape["eager_ms"],
-        "other_shapes": [cvr_shape, lm_shape, lm_red_shape],
+        "other_shapes": [cvr_shape, event_shape, toy_shape, lm_shape,
+                         lm_red_shape, mamba_shape],
         "bf16_lane_max_abs_err": vr_bf16_err,
-        "paths": [{k: p[k] for k in ("label", "launches", "steps", "wall_s",
+        "paths": [{k: p[k] for k in ("label", "launches", "steps",
+                                     "inner_steps", "inner_steps_s",
+                                     "evals_per_round", "wall_s",
                                      "unfused_wall_s", "peak_bytes")}
                   for p in paths] + lm_paths}, {
         "name": "rmsnorm", "route": "cuda",

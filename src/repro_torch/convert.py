@@ -3,19 +3,21 @@ into the port, so that both packages compute the same run.
 
 The reference's arrays arrive as anything ``np.asarray`` takes (a JAX
 array converts without this module importing jax): a ``Problem`` /
-``ShardedProblem`` or a ``VRState`` / ``SyncState`` becomes the port's
-counterpart on ``device``.
+``ShardedProblem`` or a ``VRState`` / ``SyncState`` / ``AsyncState`` /
+``DSagaState`` becomes the port's counterpart on ``device``.
 
 The reference's LM parameters (a tree of arrays, its layers stacked
 along a leading axis for its scan) become the port's tree, one entry per
 layer (:func:`lm_params_from_jax`), and its token blocks become int64
 tensors (:func:`tokens_from_jax`).
 
-The reference draws its visit orders inside its drivers with
-``jax.random``; :func:`centralvr_orders` and :func:`sync_orders` replay
-its key splits and return the draws as numpy arrays, in the ``orders``
-layout of ``repro_torch.solve``. They take the caller's ``jax.random``
-module as an argument, because this package never imports jax.
+The reference draws its visit orders and sample indices inside its
+drivers with ``jax.random``; one function per driver here
+(:func:`centralvr_orders`, :func:`sync_orders`, :func:`async_orders`, ...)
+replays its key splits and returns the draws as numpy arrays, in the
+``orders`` layout of ``repro_torch.solve``. They take the caller's
+``jax.random`` module as an argument, because this package never imports
+jax.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ import torch
 
 from repro_torch.core.centralvr import VRState
 from repro_torch.core.convex import Problem
-from repro_torch.core.distributed import ShardedProblem, SyncState
+from repro_torch.core.distributed import (AsyncState, DSagaState,
+                                          ShardedProblem, SyncState)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -51,6 +54,16 @@ def to_sync_state(ref, *, device) -> SyncState:
                                                     ref.gbar)))
 
 
+def to_async_state(ref, *, device) -> AsyncState:
+    """A reference ``AsyncState`` (Algorithm 3, stale-fetch D-SAGA)."""
+    return AsyncState(*(_tensor(t, device) for t in ref))
+
+
+def to_dsaga_state(ref, *, device) -> DSagaState:
+    """A reference ``DSagaState`` (instant-fetch D-SAGA)."""
+    return DSagaState(*(_tensor(t, device) for t in ref))
+
+
 def centralvr_orders(random, key, n: int, epochs: int,
                      sampling: str = "permutation"):
     """The visit orders of ``repro.core.centralvr.run(..., key=key)``:
@@ -68,12 +81,109 @@ def centralvr_orders(random, key, n: int, epochs: int,
 def sync_orders(random, key, p: int, ns: int, rounds: int):
     """The visit orders of ``repro.core.distributed.run_sync(..., key=key)``:
     (init permutations (p, ns), per-round permutations (rounds, p, ns))."""
-    def perms(k):
-        return np.stack([np.array(random.permutation(kw, ns))
-                         for kw in random.split(k, p)])
     k_init, k_run = random.split(key)
-    return perms(k_init), np.stack([perms(k)
-                                    for k in random.split(k_run, rounds)])
+    return _perms(random, k_init, p, ns), np.stack(
+        [_perms(random, k, p, ns) for k in random.split(k_run, rounds)])
+
+
+def _perms(random, key, p: int, ns: int):
+    """One permutation of range(ns) per key of ``split(key, p)``, (p, ns)
+    (the reference's ``sync_init`` and ``sync_round``)."""
+    return np.stack([np.array(random.permutation(k, ns))
+                     for k in random.split(key, p)])
+
+
+def _randint_per_key(random, key, count: int, shape, high: int):
+    """``randint(k, shape, 0, high)`` for each key of ``split(key, count)``,
+    stacked: (count, *shape)."""
+    return np.stack([np.array(random.randint(k, shape, 0, high))
+                     for k in random.split(key, count)])
+
+
+def _anchors(random, key, count: int, high: int, snapshot: str):
+    """The SVRG anchor indices of ``snapshot="rand"``, drawn off
+    ``fold_in(key, 1)`` so the main stream is unaffected; None else."""
+    if snapshot != "rand":
+        return None
+    return np.array(random.randint(random.fold_in(key, 1), (count,), 0,
+                                   high))
+
+
+def sgd_orders(random, key, n: int, epochs: int):
+    """The per-epoch permutations (epochs, n) of
+    ``repro.core.baselines.run_sgd(..., key=key)``."""
+    return np.stack([np.array(random.permutation(k, n))
+                     for k in random.split(key, epochs)])
+
+
+def svrg_orders(random, key, n: int, epochs: int, inner: int = 0,
+                snapshot: str = "last"):
+    """The draws of ``repro.core.baselines.run_svrg(..., key=key)``:
+    (sample indices (epochs, inner), anchor indices (epochs,) or None);
+    ``inner`` 0 means n."""
+    inner = inner or n
+    return (_randint_per_key(random, key, epochs, (inner,), n),
+            _anchors(random, key, epochs, inner, snapshot))
+
+
+def saga_orders(random, key, n: int, epochs: int):
+    """The sample indices (epochs, n) of
+    ``repro.core.baselines.run_saga(..., key=key)``."""
+    return _randint_per_key(random, key, epochs, (n,), n)
+
+
+def async_orders(random, key, p: int, ns: int, rounds: int):
+    """The draws of ``repro.core.distributed.run_async(..., key=key)``:
+    (init permutations (p, ns), per-event permutations (rounds * p, ns)
+    in schedule order, whatever the speeds)."""
+    k_init, k_run = random.split(key)
+    return _perms(random, k_init, p, ns), _perms(random, k_run, rounds * p,
+                                                 ns)
+
+
+def dsvrg_orders(random, key, p: int, ns: int, rounds: int, tau: int = 0,
+                 snapshot: str = "last"):
+    """The draws of ``repro.core.distributed.run_dsvrg(..., key=key)``:
+    (sample indices (rounds, p, tau), anchor indices (rounds,) or None);
+    ``tau`` 0 means 2*ns."""
+    tau = tau or 2 * ns
+    idx = np.stack([_randint_per_key(random, k, p, (tau,), ns)
+                    for k in random.split(key, rounds)])
+    return idx, _anchors(random, key, rounds, tau, snapshot)
+
+
+def dsaga_orders(random, key, p: int, ns: int, rounds: int,
+                 tau: int = 100):
+    """The per-event sample indices (rounds * p, tau), in schedule order,
+    of ``repro.core.distributed.run_dsaga(..., key=key)``."""
+    return _randint_per_key(random, key, rounds * p, (tau,), ns)
+
+
+def dist_sgd_orders(random, key, p: int, ns: int, rounds: int,
+                    tau: int = 0):
+    """The sample indices (rounds, p, tau) of
+    ``repro.core.baselines.run_dist_sgd(..., key=key)``; ``tau`` 0 means
+    ns."""
+    tau = tau or ns
+    return np.stack([_randint_per_key(random, k, p, (tau,), ns)
+                     for k in random.split(key, rounds)])
+
+
+def easgd_orders(random, key, p: int, ns: int, rounds: int, tau: int = 16):
+    """The sample indices (rounds, p, max(ns // tau, 1), tau) of
+    ``repro.core.baselines.run_easgd(..., key=key)``."""
+    spr = max(ns // tau, 1)
+    return np.stack([_randint_per_key(random, k, p, (spr * tau,), ns)
+                     for k in random.split(key, rounds)]).reshape(
+        rounds, p, spr, tau)
+
+
+def ps_svrg_orders(random, key, p: int, ns: int, rounds: int,
+                   epoch_mult: int = 2):
+    """The sample indices (rounds, epoch_mult * ns, p) of
+    ``repro.core.baselines.run_ps_svrg(..., key=key)``."""
+    return np.stack([_randint_per_key(random, k, epoch_mult * ns, (p,), ns)
+                     for k in random.split(key, rounds)])
 
 
 def _tree_map(fn, tree):

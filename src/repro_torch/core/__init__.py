@@ -4,7 +4,11 @@ variants.
 Modules:
   convex       -- the paper's experimental problems (GLM scalar-residual form)
   centralvr    -- Algorithm 1 (single worker)
-  distributed  -- Algorithm 2 (CentralVR-Sync), workers as a batch dimension
-  fused        -- the inner loop through the hand-written vr_update kernel
+  distributed  -- Algorithms 2-5 (CentralVR-Sync, CentralVR-Async, D-SVRG,
+                  D-SAGA), workers as a batch dimension
+  baselines    -- SGD, SVRG, SAGA (Fig. 1); distributed SGD, EASGD, PS-SVRG
+  runtime      -- the asynchronous event schedule and its wave algebra
+  fused        -- the VR inner loops through the hand-written vr_update
+                  kernel
   solver       -- RunSpec / solve / RunResult
 """

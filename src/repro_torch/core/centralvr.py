@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.core import convex
 from repro_torch.core.convex import Problem
-from repro_torch.core.distributed import (_as_orders, _local_centralvr_epoch,
+from repro_torch.core.distributed import (_as_orders, _generator,
+                                          _local_centralvr_epoch,
                                           _local_sgd_epoch)
 from repro_torch.prox import operators as proxops
 
@@ -113,8 +114,8 @@ def run(prob: Problem, *, eta: float, epochs: int, orders=None,
                           prox=proxops.canonical(prox))
     device = prob.A.device
     if orders is None:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        orders = draw_orders(gen, prob.n, epochs, sampling)
+        orders = draw_orders(_generator(device, seed), prob.n, epochs,
+                             sampling)
     init, per = _as_orders(orders, ((prob.n,), (epochs, prob.n)), device)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     # the fused parameters carry their own copy of the (elementwise) prox

@@ -1,5 +1,10 @@
-"""CentralVR-Sync (Algorithm 2 of the paper) on the convex substrate —
-the port of the synchronous part of ``repro/core/distributed.py``.
+"""The distributed algorithms of the paper on the convex substrate — the
+port of ``repro/core/distributed.py``:
+
+  * CentralVR-Sync   (Algorithm 2)
+  * CentralVR-Async  (Algorithm 3): delta algebra + staleness simulator
+  * Distributed SVRG (Algorithm 4)
+  * Distributed SAGA (Algorithm 5), instant or stale fetch
 
 Workers are a batch dimension: the p local shards are stacked along a
 leading axis and step t of a local epoch visits row ``perm[w, t]`` of
@@ -7,12 +12,16 @@ every worker's shard at once, where the reference runs the local epochs
 under ``jax.vmap``. The central server of the paper is the average across
 that axis.
 
-Randomness is data: the drivers take each round's permutations as
-``orders`` (the reference draws them with ``jax.random``), and draw them
-from a ``torch.Generator`` only when none are given.
+The asynchronous algorithms (3 and 5) are event-serial: the host walks a
+deterministic arrival order (``runtime.event_schedule``; round-robin, or
+weighted by per-worker ``speeds``), and each event reads the central
+state the previous event wrote, so an event runs one worker's steps at
+(1, d) and events are never batched across workers.
 
-Not ported yet (ROADMAP.md queue 1, item 5): CentralVR-Async
-(Algorithm 3), D-SVRG (Algorithm 4), D-SAGA (Algorithm 5).
+Randomness is data: the drivers take their draws (permutations or
+sample indices) as ``orders`` (the reference draws them with
+``jax.random``), and draw them from a ``torch.Generator`` only when none
+are given.
 """
 from __future__ import annotations
 
@@ -20,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import convex
+from repro_torch.core import convex, runtime
 from repro_torch.core.convex import Problem
 from repro_torch.prox import operators as proxops
 
@@ -172,25 +181,45 @@ def sync_round(sp: ShardedProblem, st: SyncState, eta: float,
                      tables=tables, gbar=accs.mean(0))
 
 
+def _generator(device, seed: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _randperms(gen: torch.Generator, k: int, n: int) -> torch.Tensor:
+    """(k, n): k permutations of range(n)."""
+    return torch.stack([torch.randperm(n, generator=gen, device=gen.device)
+                        for _ in range(k)])
+
+
+def _randint(gen: torch.Generator, high: int, shape) -> torch.Tensor:
+    return torch.randint(0, high, tuple(shape), generator=gen,
+                         device=gen.device)
+
+
 def draw_sync_orders(gen: torch.Generator, p: int, ns: int, rounds: int):
     """(init (p, ns), per-round (rounds, p, ns)) permutations from ``gen``."""
-    def perms():
-        return torch.stack([torch.randperm(ns, generator=gen,
-                                           device=gen.device)
-                            for _ in range(p)])
-    init = perms()
-    return init, torch.stack([perms() for _ in range(rounds)])
+    init = _randperms(gen, p, ns)
+    return init, torch.stack([_randperms(gen, p, ns) for _ in range(rounds)])
 
 
-def _as_orders(orders, shapes, device):
-    """Explicit orders as int64 tensors on ``device``, shape-checked."""
-    init, per = (torch.as_tensor(o, device=device).long() for o in orders)
-    for name, t, shape in (("init", init, shapes[0]),
-                           ("per-round", per, shapes[1])):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"orders: {name} orders have shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-    return init, per
+def _as_index(t, shape, name: str, device) -> torch.Tensor:
+    """One explicit draw array as an int64 tensor on ``device``,
+    shape-checked."""
+    if t is None:
+        raise ValueError(f"orders: {name} are missing, expected shape "
+                         f"{tuple(shape)}")
+    t = torch.as_tensor(t, device=device).long()
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"orders: {name} have shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    return t
+
+
+def _as_orders(orders, shapes, device, names=("init", "per-round")):
+    """Explicit (init, per-round) orders as int64 tensors on ``device``,
+    shape-checked."""
+    return tuple(_as_index(o, shape, f"{name} orders", device)
+                 for o, shape, name in zip(orders, shapes, names))
 
 
 def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
@@ -210,8 +239,8 @@ def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
                           prox=proxops.canonical(prox))
     device = sp.A.device
     if orders is None:
-        gen = torch.Generator(device=device).manual_seed(seed)
-        orders = draw_sync_orders(gen, sp.p, sp.ns, rounds)
+        orders = draw_sync_orders(_generator(device, seed), sp.p, sp.ns,
+                                  rounds)
     init, per = _as_orders(orders, ((sp.p, sp.ns), (rounds, sp.p, sp.ns)),
                            device)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
@@ -224,3 +253,396 @@ def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
         st = sync_round(sp, st, eta, per[r], fused=fused_t, prox=px)
         rels.append(convex.rel_grad_norm(merged, st.x, g0, prox=px, eta=eta))
     return st, torch.stack(rels)
+
+
+def _put(t: torch.Tensor, s: int, row: torch.Tensor) -> torch.Tensor:
+    """``t`` with row ``s`` replaced by ``row`` (a new tensor; the event
+    functions leave the state they are given as it was)."""
+    t = t.clone()
+    t[s] = row
+    return t
+
+
+# ---------------------------------------------------------------------------
+# CentralVR-Async (Algorithm 3)
+# ---------------------------------------------------------------------------
+
+class AsyncState(NamedTuple):
+    x_c: torch.Tensor        # (d,) central iterate
+    gbar_c: torch.Tensor     # (d,) central mean gradient (data term)
+    tables: torch.Tensor     # (p, ns)
+    x_old: torch.Tensor      # (p, d) each worker's previous sent x
+    gbar_old: torch.Tensor   # (p, d) each worker's previous sent gbar
+    x_fetch: torch.Tensor    # (p, d) central x as of each worker's last fetch
+    gbar_fetch: torch.Tensor  # (p, d)
+
+
+def async_init(sp: ShardedProblem, eta: float, perms: torch.Tensor,
+               prox=None) -> AsyncState:
+    """``sync_init`` visiting ``perms`` (p, ns), with every worker's
+    previous contribution and fetch set to the init iterate: Algorithm 3
+    line 2 sets x_old = gbar_old = 0 with x_c = x0, which from the
+    SGD-init iterate would make the first p events add it a second time
+    (same algebra, transient removed, as in the reference)."""
+    st = sync_init(sp, eta, perms, prox=prox)
+
+    def tile(v):
+        return v.expand(sp.p, -1).clone()
+
+    return AsyncState(x_c=st.x, gbar_c=st.gbar, tables=st.tables,
+                      x_old=tile(st.x), gbar_old=tile(st.gbar),
+                      x_fetch=tile(st.x), gbar_fetch=tile(st.gbar))
+
+
+def async_event(sp: ShardedProblem, st: AsyncState, s: int, eta: float,
+                perm: torch.Tensor, fused=None, prox=None) -> AsyncState:
+    """Worker ``s`` completes one local epoch visiting ``perm`` (ns,) from
+    its stale fetch and sends (dx, dgbar); the central node applies
+    x += dx/p (Alg 3 l.18-21); the worker then fetches the fresh central
+    state.
+
+    Composite objectives: x_c stays LINEAR in the pushed deltas, so the
+    prox is never applied to x_c itself; each worker prox's its FETCHED
+    copy at epoch start, and the metric is taken at ``prox(x_c)``."""
+    alpha = 1.0 / sp.p
+    x_new, table, gtilde = (t[0] for t in _local_centralvr_epoch(
+        sp.A[s:s + 1], sp.b[s:s + 1], sp.lam, sp.kind,
+        proxops.apply_prox(prox, st.x_fetch[s:s + 1], eta),
+        st.tables[s:s + 1], st.gbar_fetch[s:s + 1], eta, perm[None],
+        fused=fused, prox=prox))
+    x_c = st.x_c + alpha * (x_new - st.x_old[s])
+    gbar_c = st.gbar_c + alpha * (gtilde - st.gbar_old[s])
+    return AsyncState(x_c=x_c, gbar_c=gbar_c,
+                      tables=_put(st.tables, s, table),
+                      x_old=_put(st.x_old, s, x_new),
+                      gbar_old=_put(st.gbar_old, s, gtilde),
+                      x_fetch=_put(st.x_fetch, s, x_c),   # receive updated x
+                      gbar_fetch=_put(st.gbar_fetch, s, gbar_c))
+
+
+def draw_async_orders(gen: torch.Generator, p: int, ns: int, rounds: int):
+    """(init (p, ns), per-event (rounds * p, ns)) permutations from
+    ``gen``; event t of the schedule visits row t."""
+    return _randperms(gen, p, ns), _randperms(gen, rounds * p, ns)
+
+
+def _run_events(sp: ShardedProblem, st, event, schedule, draws, eta: float,
+                px, rounds: int):
+    """Walk an event schedule one round of p events at a time; event t
+    runs ``event(st, worker, draws[t])``. Returns (state, per-round rels
+    at ``prox(x_c)``, as a (rounds,) tensor)."""
+    merged = sp.merged()
+    g0 = convex.grad_norm0(merged, prox=px, eta=eta)
+    sched, draws = runtime.per_round(schedule, draws, sp.p)
+    rels = []
+    for r in range(rounds):
+        for s, draw in zip(sched[r].tolist(), draws[r]):
+            st = event(st, s, draw)
+        rels.append(convex.rel_grad_norm(
+            merged, proxops.apply_prox(px, st.x_c, eta), g0, prox=px,
+            eta=eta))
+    return st, torch.stack(rels)
+
+
+def run_async(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
+              seed: int = 0, speeds=None, fused=False, prox=None):
+    """Algorithm 3: ``rounds`` epochs per worker, one event at a time in
+    the order of ``runtime.event_schedule(p, rounds, speeds)``
+    (round-robin by default: staleness p-1; faster workers fire
+    proportionally more events). Returns (final AsyncState, per-round
+    rels at ``prox(x_c)``).
+
+    ``orders``: ``(init, per_event)`` permutations shaped (p, ns) and
+    (rounds * p, ns), per-event rows in schedule order (the reference's
+    draws: ``repro_torch.convert.async_orders``); ``None`` draws them from
+    a ``torch.Generator`` seeded with ``seed``."""
+    from repro_torch.core import fused as fusedmod
+    from repro_torch.core import solver
+    spec = solver.RunSpec(
+        algo="centralvr_async", p=sp.p, eta=float(eta), rounds=rounds,
+        fused=fused,
+        speeds=None if speeds is None else tuple(float(s) for s in speeds),
+        prox=proxops.canonical(prox))
+    device = sp.A.device
+    if orders is None:
+        orders = draw_async_orders(_generator(device, seed), sp.p, sp.ns,
+                                   rounds)
+    init, events = _as_orders(
+        orders, ((sp.p, sp.ns), (rounds * sp.p, sp.ns)), device,
+        names=("init", "per-event"))
+    px = proxops.parse(spec.prox) if spec.prox is not None else None
+    fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
+    st = async_init(sp, eta, init, prox=px)
+    schedule = runtime.event_schedule(sp.p, rounds, spec.speeds)
+    return _run_events(
+        sp, st, lambda st, s, perm: async_event(sp, st, s, eta, perm,
+                                                fused=fused_t, prox=px),
+        schedule, events, eta, px, rounds)
+
+
+# ---------------------------------------------------------------------------
+# Distributed SVRG (Algorithm 4)
+# ---------------------------------------------------------------------------
+
+def _svrg_anchors(A, b, lam, kind, xbar, gbar, eta, idx, fused=None,
+                  prox=None, snapshot="last", r=None):
+    """SVRG inner steps on every worker's shard from the shared snapshot
+    ``xbar`` (d,): ``A`` (p, n, d), ``idx`` (p, T), ``gbar`` the full
+    regularized gradient at ``xbar``. Returns the anchor each worker
+    contributes, (p, d): its last inner iterate (``snapshot="last"``),
+    the mean of its T inner iterates (``"avg"``), or its iterate after
+    step ``r + 1`` (``"rand"``). ``fused`` (``snapshot="last"`` only):
+    one ``vr_update`` launch per step for all workers."""
+    p = A.shape[0]
+    x = xbar.expand(p, -1)
+    # the snapshot residuals, one matvec per call
+    sbar = convex._pointwise_residual(A @ xbar, b, kind)
+    if fused is not None:
+        from repro_torch.core import fused as fusedmod
+        return fusedmod.svrg_steps(A, b, kind, x, sbar, gbar, idx, fused)
+    rows, labels = convex.gather_epoch(A, b, idx)
+    sbar_t = sbar.gather(1, idx)          # (p, T), in visit order
+    total = torch.zeros_like(x)
+    anchor = None
+    for t in range(idx.shape[1]):
+        a = rows[:, t]
+        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
+                                           labels[:, t], kind)
+        g = ((s_new - sbar_t[:, t])[:, None] * a + gbar
+             + 2.0 * lam * (x - xbar))
+        x = proxops.apply_prox(prox, x - eta * g, eta)
+        if snapshot == "avg":
+            total = total + x
+        elif snapshot == "rand" and t == r:
+            anchor = x
+    if snapshot == "avg":
+        return total / idx.shape[1]
+    return x if snapshot == "last" else anchor
+
+
+def draw_dsvrg_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
+                      tau: int, snapshot: str = "last"):
+    """(sample indices (rounds, p, tau), anchor indices (rounds,) in
+    [0, tau) for ``snapshot="rand"``, else None) from ``gen``."""
+    idx = _randint(gen, ns, (rounds, p, tau))
+    return idx, (_randint(gen, tau, (rounds,)) if snapshot == "rand"
+                 else None)
+
+
+def run_dsvrg(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 0,
+              orders=None, seed: int = 0, fused=False, prox=None,
+              snapshot: str = "last"):
+    """Algorithm 4: ``tau`` local steps (default 2*ns) on every worker
+    from the shared snapshot, gbar = the full gradient at the snapshot
+    (the synchronization step), then the average of the workers' anchors
+    (``snapshot``: last, avg or rand; avg and rand run unfused, which
+    ``fused="auto"`` does silently and RunSpec requires of
+    ``fused=True``), prox'd once more. Returns (x, per-round rels).
+
+    ``orders``: ``(idx, snap)``, the sample indices (rounds, p, tau) and,
+    for ``snapshot="rand"``, each round's anchor index (rounds,) in
+    [0, tau) (else None) — the reference's draws:
+    ``repro_torch.convert.dsvrg_orders``; ``None`` draws them from a
+    ``torch.Generator`` seeded with ``seed``."""
+    from repro_torch.core import fused as fusedmod
+    from repro_torch.core import solver
+    spec = solver.RunSpec(algo="dsvrg", p=sp.p, eta=float(eta),
+                          rounds=rounds, tau=tau or None, fused=fused,
+                          prox=proxops.canonical(prox), snapshot=snapshot)
+    device = sp.A.device
+    px = proxops.parse(spec.prox) if spec.prox is not None else None
+    fused_t = (fusedmod.make_params(spec.fused, eta, sp.lam, device,
+                                    prox=px)
+               if snapshot == "last" else None)
+    tau = tau or 2 * sp.ns
+    if orders is None:
+        orders = draw_dsvrg_orders(_generator(device, seed), sp.p, sp.ns,
+                                   rounds, tau, snapshot)
+    idx = _as_index(orders[0], (rounds, sp.p, tau), "sample indices",
+                    device)
+    snap = (_as_index(orders[1], (rounds,), "anchor indices", device)
+            .tolist() if snapshot == "rand" else [None] * rounds)
+    merged = sp.merged()
+    x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
+    g0 = convex.grad_norm0(merged, prox=px, eta=eta)
+    rels = []
+    for r in range(rounds):
+        anchors = _svrg_anchors(sp.A, sp.b, sp.lam, sp.kind, x,
+                                convex.full_grad(merged, x), eta, idx[r],
+                                fused=fused_t, prox=px, snapshot=snapshot,
+                                r=snap[r])
+        x = proxops.apply_prox(px, anchors.mean(0), eta)
+        rels.append(convex.rel_grad_norm(merged, x, g0, prox=px, eta=eta))
+    return x, torch.stack(rels)
+
+
+# ---------------------------------------------------------------------------
+# Distributed SAGA (Algorithm 5)
+# ---------------------------------------------------------------------------
+
+class DSagaState(NamedTuple):
+    x_c: torch.Tensor
+    gbar_c: torch.Tensor
+    tables: torch.Tensor     # (p, ns) scalar residuals
+    x_old: torch.Tensor      # (p, d)
+    gbar_old: torch.Tensor   # (p, d) literal mode: previous local final gbar
+
+
+def _local_saga_steps(A, b, lam, kind, x, table, gbar, eta, n_global, idx,
+                      fused=None, prox=None):
+    """SAGA steps on every worker's shard (Alg 5 lines 5-11): ``A``
+    (p, n, d), ``b`` and ``table`` (p, n), ``x`` and ``gbar`` (p, d),
+    ``idx`` (p, T). The VR step from the scalar table, then the
+    running-mean gbar update with the GLOBAL 1/n scaling (line 9, §5.2).
+    ``fused``: one ``vr_update`` launch per step (SAGA lane). Returns
+    (x, table, gbar)."""
+    if fused is not None:
+        from repro_torch.core import fused as fusedmod
+        return fusedmod.saga_steps(A, b, kind, x, table, gbar, n_global,
+                                   idx, fused)
+    rows, labels = convex.gather_epoch(A, b, idx)
+    table = table.clone()
+    for t in range(idx.shape[1]):
+        a = rows[:, t]
+        i = idx[:, t:t + 1]
+        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
+                                           labels[:, t], kind)[:, None]
+        da = (s_new - table.gather(1, i)) * a
+        v = da + gbar + 2.0 * lam * x
+        gbar = gbar + da / n_global
+        table.scatter_(1, i, s_new)
+        x = proxops.apply_prox(prox, x - eta * v, eta)
+    return x, table, gbar
+
+
+def _dsaga_local(sp: ShardedProblem, tables, s: int, x_from, gbar_from,
+                 eta: float, idx, fused, prox):
+    """Worker ``s``'s tau SAGA steps from the fetched (x, gbar), the
+    fetched x prox'd first (x_c stays linear in the pushed deltas, as in
+    ``async_event``). Returns (x, table, gbar) of the worker."""
+    x, table, gbar = _local_saga_steps(
+        sp.A[s:s + 1], sp.b[s:s + 1], sp.lam, sp.kind,
+        proxops.apply_prox(prox, x_from[None], eta), tables[s:s + 1],
+        gbar_from[None], eta, sp.p * sp.ns, idx[None], fused=fused,
+        prox=prox)
+    return x[0], table[0], gbar[0]
+
+
+def dsaga_event(sp: ShardedProblem, st: DSagaState, s: int, eta: float,
+                idx: torch.Tensor, literal_scaling: bool = False,
+                fused=None, prox=None) -> DSagaState:
+    """Worker ``s``: tau = len(idx) local SAGA steps from the current
+    central state, then the delta push (Alg 5 lines 12-20). Events run
+    one at a time: the paper's implementation is 'locked', one worker
+    updates the server at a time (§6.2)."""
+    alpha = 1.0 / sp.p
+    alpha_g = alpha if literal_scaling else 1.0
+    x, table, gbar = _dsaga_local(sp, st.tables, s, st.x_c, st.gbar_c, eta,
+                                  idx, fused, prox)
+    # literal: the printed line 13; else the worker's own contribution
+    dg = gbar - (st.gbar_old[s] if literal_scaling else st.gbar_c)
+    return DSagaState(x_c=st.x_c + alpha * (x - st.x_old[s]),
+                      gbar_c=st.gbar_c + alpha_g * dg,
+                      tables=_put(st.tables, s, table),
+                      x_old=_put(st.x_old, s, x),
+                      gbar_old=_put(st.gbar_old, s, gbar))
+
+
+def dsaga_init(sp: ShardedProblem) -> DSagaState:
+    """Tables at x0 = 0 (Alg 5 lines 2-3), central gbar = the global
+    table mean."""
+    x0 = torch.zeros(sp.d, dtype=sp.A.dtype, device=sp.A.device)
+    s_all = convex._pointwise_residual(sp.A @ x0, sp.b, sp.kind)
+    gbar0 = torch.einsum("psd,ps->d", sp.A, s_all) / (sp.p * sp.ns)
+    return DSagaState(x_c=x0, gbar_c=gbar0, tables=s_all,
+                      x_old=x0.expand(sp.p, -1).clone(),
+                      gbar_old=gbar0.expand(sp.p, -1).clone())
+
+
+def dsaga_init_stale(sp: ShardedProblem) -> AsyncState:
+    """Stale-fetch D-SAGA start state: ``dsaga_init`` plus every worker's
+    fetch set to the central values."""
+    st = dsaga_init(sp)
+    return AsyncState(x_c=st.x_c, gbar_c=st.gbar_c, tables=st.tables,
+                      x_old=st.x_old, gbar_old=st.gbar_old,
+                      x_fetch=st.x_c.expand(sp.p, -1).clone(),
+                      gbar_fetch=st.gbar_c.expand(sp.p, -1).clone())
+
+
+def dsaga_event_stale(sp: ShardedProblem, st: AsyncState, s: int,
+                      eta: float, idx: torch.Tensor,
+                      literal_scaling: bool = False, fused=None,
+                      prox=None) -> AsyncState:
+    """Algorithm 5 with Algorithm 3's fetch discipline: worker ``s`` runs
+    its tau local SAGA steps from the central state it fetched at its
+    PREVIOUS event; dx against its previous sent x, dgbar against its
+    fetched gbar (its own contribution, §5.2), server coefficients as in
+    ``dsaga_event``; then it fetches."""
+    alpha = 1.0 / sp.p
+    alpha_g = alpha if literal_scaling else 1.0
+    x, table, gbar = _dsaga_local(sp, st.tables, s, st.x_fetch[s],
+                                  st.gbar_fetch[s], eta, idx, fused, prox)
+    dg = gbar - (st.gbar_old[s] if literal_scaling else st.gbar_fetch[s])
+    x_c = st.x_c + alpha * (x - st.x_old[s])
+    gbar_c = st.gbar_c + alpha_g * dg
+    return AsyncState(x_c=x_c, gbar_c=gbar_c,
+                      tables=_put(st.tables, s, table),
+                      x_old=_put(st.x_old, s, x),
+                      gbar_old=_put(st.gbar_old, s, gbar),
+                      x_fetch=_put(st.x_fetch, s, x_c),
+                      gbar_fetch=_put(st.gbar_fetch, s, gbar_c))
+
+
+def draw_dsaga_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
+                      tau: int):
+    """Per-event sample indices (rounds * p, tau) from ``gen``."""
+    return _randint(gen, ns, (rounds * p, tau))
+
+
+def run_dsaga(sp: ShardedProblem, *, eta: float, rounds: int,
+              tau: int = 100, literal_scaling: bool = False,
+              fetch: str | None = None, speeds=None, orders=None,
+              seed: int = 0, fused=False, prox=None):
+    """Algorithm 5: per event, a worker runs ``tau`` SAGA steps with its
+    local table, the running mean gbar updated with the GLOBAL 1/n
+    scaling (§5.2), and pushes (dx, dgbar) with server coefficient 1/p.
+    Returns (final state, per-round rels at ``prox(x_c)``).
+
+    dgbar is the worker's OWN table-update contribution (gbar_final -
+    gbar_fetched) applied with coefficient 1, so the server's gbar stays
+    the global table mean (the §5.2 prose); ``literal_scaling=True`` is
+    the printed Algorithm 5 (dgbar against the worker's previous final
+    gbar, coefficient 1/p), kept for comparison (EXPERIMENTS.md).
+
+    ``fetch="instant"`` (the default here): each event reads the central
+    state the previous event left (a ``DSagaState``). ``fetch="stale"``:
+    Algorithm 3's discipline, each worker starts from the central state it
+    fetched at its own previous event (an ``AsyncState``). ``speeds``
+    weights the event schedule as in :func:`run_async`.
+
+    ``orders``: per-event sample indices (rounds * p, tau), rows in
+    schedule order (the reference's draws:
+    ``repro_torch.convert.dsaga_orders``); ``None`` draws them from a
+    ``torch.Generator`` seeded with ``seed``."""
+    from repro_torch.core import fused as fusedmod
+    from repro_torch.core import solver
+    spec = solver.RunSpec(
+        algo="dsaga", p=sp.p, eta=float(eta), rounds=rounds, fetch=fetch,
+        speeds=None if speeds is None else tuple(float(s) for s in speeds),
+        tau=tau, fused=fused, prox=proxops.canonical(prox))
+    device = sp.A.device
+    if orders is None:
+        orders = draw_dsaga_orders(_generator(device, seed), sp.p, sp.ns,
+                                   rounds, tau)
+    idx = _as_index(orders, (rounds * sp.p, tau), "per-event sample indices",
+                    device)
+    px = proxops.parse(spec.prox) if spec.prox is not None else None
+    fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
+    stale = spec.fetch == "stale"
+    event = dsaga_event_stale if stale else dsaga_event
+    st = dsaga_init_stale(sp) if stale else dsaga_init(sp)
+    schedule = runtime.event_schedule(sp.p, rounds, spec.speeds)
+    return _run_events(
+        sp, st, lambda st, s, i: event(sp, st, s, eta, i, literal_scaling,
+                                       fused=fused_t, prox=px),
+        schedule, idx, eta, px, rounds)

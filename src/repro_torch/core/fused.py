@@ -1,5 +1,6 @@
-"""Fused-kernel body of the CentralVR inner loop — the port of
-``repro/core/fused.py`` (``make_params``, ``centralvr_epoch``).
+"""Fused-kernel bodies of the VR inner loops — the port of
+``repro/core/fused.py`` (``make_params``, ``centralvr_epoch``,
+``saga_steps``, ``svrg_steps``).
 
 Each inner step runs its correction, parameter update, prox epilogue and
 accumulator write as ONE launch of the hand-written ``vr_update`` kernel,
@@ -16,9 +17,6 @@ Numerics: the fused step computes ``s_new*a - s_old*a`` where the unfused
 body computes ``(s_new - s_old)*a``, and applies the decay
 multiplicatively — the same real algebra with different rounding, so the
 two agree to float tolerance, as in the reference.
-
-Step-skipping, SAGA and SVRG inner loops (``saga_steps``,
-``svrg_steps``) are not ported yet (ROADMAP.md queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -87,3 +85,57 @@ def centralvr_epoch(A, b, kind, x, table, gbar, orders, fp: FusedParams):
                             decay=2.0 * lam, prox=prox, inplace=True)
         table.scatter_(1, idx, s_new[:, None])
     return x, table, acc
+
+
+def saga_steps(A, b, kind, x, table, gbar, n_global: int, idx,
+               fp: FusedParams):
+    """Fused SAGA inner loop for p workers: the arithmetic of
+    ``distributed._local_saga_steps`` (SAGA and D-SAGA) — the VR step and the running-mean gbar update (global 1/n scaling) in one
+    launch per step, which writes x and gbar in place. ``A`` (p, n, d),
+    ``b`` and ``table`` (p, n), ``x`` and ``gbar`` (p, d), ``idx`` (p, T).
+    Returns (x, table, gbar); the inputs are not modified."""
+    eta, lam, prox = fp
+    rows, labels = convex.gather_epoch(A, b, idx)
+    x = x.clone(memory_format=torch.contiguous_format)
+    gbar = gbar.clone(memory_format=torch.contiguous_format)
+    table = table.clone()
+    scratch = torch.zeros_like(x)    # the gtilde lane: written, never read
+    for t in range(idx.shape[1]):
+        a = rows[:, t]
+        i = idx[:, t:t + 1]
+        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
+                                           labels[:, t], kind)
+        vr_kernel.vr_update(x, s_new[:, None] * a, table.gather(1, i) * a,
+                            gbar, scratch, eta=eta, m=n_global, saga=True,
+                            decay=2.0 * lam, prox=prox, inplace=True)
+        table.scatter_(1, i, s_new[:, None])
+    return x, table, gbar
+
+
+def svrg_steps(A, b, kind, xbar, sbar, gbar, idx, fp: FusedParams):
+    """Fused SVRG inner loop for p workers from the snapshot ``xbar``
+    (p, d): the arithmetic of ``distributed._svrg_anchors``' unfused body
+    (SVRG and D-SVRG).
+
+    ``sbar`` (p, n) holds the snapshot residuals of each shard, so the
+    anchor gradient is ``sbar[i] * a_i``; ``gbar`` is the full
+    REGULARIZED gradient at the snapshot, (d,) or (p, d). The kernel's
+    decay supplies ``2*lam*x``, so ``2*lam*xbar`` is subtracted from gbar
+    once here:  v = s*a - sbar*a + (gbar - 2*lam*xbar) + [decay] 2*lam*x,
+    the unfused body's  (s - sbar)*a + gbar + 2*lam*(x - xbar).
+    Returns the final iterates (p, d)."""
+    eta, lam, prox = fp
+    n = A.shape[1]
+    rows, labels = convex.gather_epoch(A, b, idx)
+    x = xbar.clone(memory_format=torch.contiguous_format)
+    gbar = (gbar - 2.0 * lam * xbar).contiguous()
+    scratch = torch.zeros_like(x)    # the gtilde lane: written, never read
+    for t in range(idx.shape[1]):
+        a = rows[:, t]
+        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
+                                           labels[:, t], kind)
+        vr_kernel.vr_update(x, s_new[:, None] * a,
+                            sbar.gather(1, idx[:, t:t + 1]) * a, gbar,
+                            scratch, eta=eta, m=n, saga=False,
+                            decay=2.0 * lam, prox=prox, inplace=True)
+    return x

@@ -4,12 +4,12 @@ of ``repro/core/solver.py``.
   * :class:`RunSpec` — a frozen description of one run with ALL of the
     reference's cross-field validation, so an invalid combination fails
     before any torch work with the reference's error text. A valid spec
-    for a part that is not ported yet raises ``NotImplementedError``
-    naming the ROADMAP.md item that ports it.
+    for a part that is not ported yet (the spmd backend, process fleets
+    and elasticity, the sparse lazy driver) raises
+    ``NotImplementedError`` naming the ROADMAP.md item that ports it.
   * ``FAMILY`` — the capability record of every algorithm of the
     reference's registry (what RunSpec validates against); ``REGISTRY``
-    — the ported ones: ``centralvr`` (Algorithm 1) and
-    ``centralvr_sync`` (Algorithm 2).
+    — the same eleven algorithms with their drivers.
   * :class:`RunResult` — the uniform return, with the device it ran on
     and the kernel launches it made.
   * :func:`solve` — runs a spec on the CUDA device, or on the CPU when the
@@ -77,10 +77,6 @@ FAMILY: dict[str, AlgoCaps] = {
     "ps_svrg": AlgoCaps(distributed=True, spmd_ok=True, is_async=False),
 }
 
-# ROADMAP.md queue-1 item that ports each algorithm not in REGISTRY
-_UNPORTED = {"centralvr_async": 5, "dsvrg": 5, "dsaga": 5, "sgd": 4,
-             "svrg": 4, "saga": 4, "dist_sgd": 5, "easgd": 5, "ps_svrg": 5}
-
 
 class Algorithm(NamedTuple):
     name: str
@@ -119,11 +115,15 @@ class RunSpec:
       rounds        communication rounds (epochs for Algorithm 1)
       backend       "vmap" (workers as a batch dimension on one device);
                     "spmd" is not ported yet
-      fetch, speeds, tau, decay, snapshot
-                    axes of algorithms not ported yet, validated as in
-                    the reference
+      fetch         "instant" | "stale" (D-SAGA); None -> "instant"
+      speeds        per-worker relative speeds of the asynchronous event
+                    schedule (centralvr_async, dsaga); None -> round-robin
+      tau           local-step count (dsvrg, dsaga, svrg's inner loop,
+                    dist_sgd, easgd); None -> the algorithm's default
+      decay         step-size decay (sgd, dist_sgd, easgd)
+      snapshot      SVRG anchor: "last" | "avg" | "rand" (svrg, dsvrg)
       seed          seed of the ``torch.Generator`` that draws data and
-                    visit orders when :func:`solve` is given none
+                    the run's draws when :func:`solve` is given none
       metric_every  keep every k-th round's rel-grad-norm (plus the final
                     round) in ``RunResult.rels``
       sampling      "permutation" | "uniform" (Algorithm 1 only)
@@ -379,11 +379,6 @@ class RunSpec:
                 "elastic=True")
 
         # validated like the reference; now refuse what is not ported yet
-        if self.algo not in REGISTRY:
-            raise NotImplementedError(
-                f"RunSpec.algo: {self.algo!r} is not ported to repro_torch "
-                f"yet (ROADMAP.md queue 1, item {_UNPORTED[self.algo]}); "
-                f"ported: {', '.join(REGISTRY)}")
         if self.backend == "spmd":
             raise NotImplementedError(
                 "RunSpec.backend: the spmd backend is not ported to "
@@ -494,11 +489,32 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
 
     ``device``: None runs on the current CUDA device and raises when
     there is none — never a silent fall back to the CPU; ``"cpu"`` (or
-    any torch device) runs there. ``orders``: the visit orders of the run
-    as ``(init, per_round)`` arrays (see ``centralvr.run`` /
-    ``distributed.run_sync``); None draws them from a ``torch.Generator``
-    seeded with ``spec.seed``. ``eta=None`` resolves to
+    any torch device) runs there. ``eta=None`` resolves to
     ``convex.auto_eta`` on the merged problem.
+
+    ``orders``: the run's draws, as the driver takes them; None draws
+    them from a ``torch.Generator`` seeded with ``spec.seed`` on the
+    device. ``repro_torch.convert`` replays the reference's draws in
+    these layouts (n samples; p workers of ns; R = ``spec.rounds``):
+
+      centralvr        (init (n,), per-epoch (R, n)): permutations, or
+                       uniform indices with ``sampling="uniform"``
+      centralvr_sync   (init (p, ns), per-round (R, p, ns)) permutations
+      centralvr_async  (init (p, ns), per-event (R*p, ns)) permutations,
+                       event rows in schedule order
+      dsvrg            (indices (R, p, tau), anchors (R,) in [0, tau) for
+                       ``snapshot="rand"``, else None); tau default 2*ns
+      dsaga            indices (R*p, tau), event rows in schedule order;
+                       tau default 100
+      sgd              per-epoch permutations (R, n)
+      svrg             (indices (R, tau), anchors (R,) in [0, tau) for
+                       ``snapshot="rand"``, else None); tau default n
+      saga             indices (R, n)
+      dist_sgd         indices (R, p, tau); tau default ns
+      easgd            indices (R, p, max(ns // tau, 1), tau); tau
+                       default 16
+      ps_svrg          indices (R, 2*ns, p): one per worker per server
+                       step
     """
     from repro_torch.core import convex, distributed
     from repro_torch.kernels import resolve_device
@@ -540,7 +556,8 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
 
 
 # ---------------------------------------------------------------------------
-# Registry entries — the ported part of the family
+# Registry entries — each maps the spec onto one driver's keyword surface
+# and normalizes its return to (state, final iterate, rels, grad_evals)
 # ---------------------------------------------------------------------------
 
 def _call_centralvr(spec, prob, eta, orders):
@@ -560,6 +577,94 @@ def _call_sync(spec, sp, eta, orders):
     return st, st.x, rels, None
 
 
+def _call_async(spec, sp, eta, orders):
+    from repro_torch.core import distributed
+    st, rels = distributed.run_async(sp, eta=eta, rounds=spec.rounds,
+                                     orders=orders, seed=spec.seed,
+                                     speeds=spec.speeds, fused=spec.fused,
+                                     prox=spec.prox)
+    return st, st.x_c, rels, None
+
+
+def _call_dsvrg(spec, sp, eta, orders):
+    from repro_torch.core import distributed
+    x, rels = distributed.run_dsvrg(sp, eta=eta, rounds=spec.rounds,
+                                    tau=spec.tau or 0, orders=orders,
+                                    seed=spec.seed, fused=spec.fused,
+                                    prox=spec.prox,
+                                    snapshot=spec.snapshot or "last")
+    return x, x, rels, None
+
+
+def _call_dsaga(spec, sp, eta, orders):
+    from repro_torch.core import distributed
+    st, rels = distributed.run_dsaga(sp, eta=eta, rounds=spec.rounds,
+                                     tau=spec.tau or 100, fetch=spec.fetch,
+                                     speeds=spec.speeds, orders=orders,
+                                     seed=spec.seed, fused=spec.fused,
+                                     prox=spec.prox)
+    return st, st.x_c, rels, None
+
+
+def _call_sgd(spec, prob, eta, orders):
+    from repro_torch.core import baselines
+    x, rels = baselines.run_sgd(prob, eta=eta, epochs=spec.rounds,
+                                orders=orders, seed=spec.seed,
+                                decay=spec.decay)
+    return x, x, rels, None
+
+
+def _call_svrg(spec, prob, eta, orders):
+    from repro_torch.core import baselines
+    x, rels = baselines.run_svrg(prob, eta=eta, epochs=spec.rounds,
+                                 inner=spec.tau or 0, orders=orders,
+                                 seed=spec.seed, fused=spec.fused,
+                                 prox=spec.prox,
+                                 snapshot=spec.snapshot or "last")
+    return x, x, rels, None
+
+
+def _call_saga(spec, prob, eta, orders):
+    from repro_torch.core import baselines
+    x, rels = baselines.run_saga(prob, eta=eta, epochs=spec.rounds,
+                                 orders=orders, seed=spec.seed,
+                                 fused=spec.fused, prox=spec.prox)
+    return x, x, rels, None
+
+
+def _call_dist_sgd(spec, sp, eta, orders):
+    from repro_torch.core import baselines
+    x, rels = baselines.run_dist_sgd(sp, eta=eta, rounds=spec.rounds,
+                                     tau=spec.tau or 0, decay=spec.decay,
+                                     orders=orders, seed=spec.seed)
+    return x, x, rels, None
+
+
+def _call_easgd(spec, sp, eta, orders):
+    from repro_torch.core import baselines
+    xc, rels = baselines.run_easgd(sp, eta=eta, rounds=spec.rounds,
+                                   tau=spec.tau or 16, decay=spec.decay,
+                                   orders=orders, seed=spec.seed)
+    return xc, xc, rels, None
+
+
+def _call_ps_svrg(spec, sp, eta, orders):
+    from repro_torch.core import baselines
+    x, rels = baselines.run_ps_svrg(sp, eta=eta, rounds=spec.rounds,
+                                    orders=orders, seed=spec.seed)
+    return x, x, rels, None
+
+
 register("centralvr", _call_centralvr,
          "CentralVR, single worker (Algorithm 1)")
 register("centralvr_sync", _call_sync, "CentralVR-Sync (Algorithm 2)")
+register("centralvr_async", _call_async,
+         "CentralVR-Async (Algorithm 3), deterministic event schedule")
+register("dsvrg", _call_dsvrg, "Distributed SVRG (Algorithm 4)")
+register("dsaga", _call_dsaga, "Distributed SAGA (Algorithm 5)")
+register("sgd", _call_sgd, "plain SGD, permutation sampling (Fig. 1 baseline)")
+register("svrg", _call_svrg, "SVRG [17]; tau = inner-loop length (default n)")
+register("saga", _call_saga, "SAGA [12] (Fig. 1 baseline)")
+register("dist_sgd", _call_dist_sgd, "distributed SGD with periodic averaging")
+register("easgd", _call_easgd, "elastic averaging SGD [36]")
+register("ps_svrg", _call_ps_svrg, "parameter-server SVRG [29]")

@@ -71,6 +71,92 @@ def test_vr_update_kernel_stores_only_what_changes(device, saga):
         assert torch.equal(h, w) and torch.equal(i, w)
 
 
+def _loop_inputs(device, p, n=5000, d=1000, T=200, seed=0):
+    rng = np.random.default_rng(seed)
+    A = torch.from_numpy(rng.standard_normal((p, n, d)) / np.sqrt(d))
+    b = torch.from_numpy(np.where(rng.random((p, n)) < 0.5, -1.0, 1.0))
+    x = torch.from_numpy(0.1 * rng.standard_normal((p, d)))
+    table = torch.from_numpy(0.3 * rng.standard_normal((p, n)))
+    gbar = torch.from_numpy(0.01 * rng.standard_normal((p, d)))
+    idx = torch.from_numpy(rng.integers(0, n, (p, T)))
+    return [t.to(device) for t in (A, b, x, table, gbar, idx)]
+
+
+@pytest.mark.parametrize("prox", [None, "l1:0.01"])
+@pytest.mark.parametrize("p", [1, 8])
+def test_saga_and_svrg_steps_on_the_card_match_unfused(device, p, prox):
+    """K1's SAGA lane (gbar updated in the launch, 1/m scaling) and its
+    SVRG feed (snapshot residuals as g_old) on the convex path's shapes,
+    (1, 1000) and (8, 1000) float64: one launch per step, fused within
+    1e-10 of the unfused bodies."""
+    from repro_torch.core import distributed
+    from repro_torch.core import fused as tfused
+    A, b, x, table, gbar, idx = _loop_inputs(device, p)
+    eta, lam = 0.05, float(np.float32(1e-4))
+    px = proxops.parse(prox) if prox else None
+    fp = tfused.make_params(True, eta, lam, device, prox=px)
+    T = idx.shape[1]
+    before = vr_kernel.launches
+    have = tfused.saga_steps(A, b, "logistic", x, table, gbar, 5000 * p,
+                             idx, fp)
+    torch.cuda.synchronize()
+    assert vr_kernel.launches == before + T
+    want = distributed._local_saga_steps(A, b, lam, "logistic", x, table,
+                                         gbar, eta, 5000 * p, idx, prox=px)
+    for h, w in zip(have, want):
+        assert (h - w).abs().max().item() <= 1e-10
+    xbar = x[0]
+    g = gbar[0] + 2.0 * lam * xbar
+    before = vr_kernel.launches
+    have = distributed._svrg_anchors(A, b, lam, "logistic", xbar, g, eta,
+                                     idx, fused=fp, prox=px)
+    torch.cuda.synchronize()
+    assert vr_kernel.launches == before + T
+    want = distributed._svrg_anchors(A, b, lam, "logistic", xbar, g, eta,
+                                     idx, prox=px)
+    assert (have - want).abs().max().item() <= 1e-10
+
+
+# launches of K1 one fused solve makes: one per inner step (R rounds, p
+# workers of ns samples; dsvrg's p workers share one launch a step)
+VR_SOLVES = [
+    ("centralvr", 1, {}, lambda R, p, ns: R * ns),
+    ("centralvr_sync", 3, {}, lambda R, p, ns: R * ns),
+    ("centralvr_async", 3, {"speeds": (1.0, 2.0, 0.5)},
+     lambda R, p, ns: R * p * ns),
+    ("dsvrg", 3, {}, lambda R, p, ns: R * 2 * ns),
+    ("dsaga", 3, {"tau": 10, "fetch": "stale"}, lambda R, p, ns: R * p * 10),
+    ("dsaga", 3, {"tau": 10}, lambda R, p, ns: R * p * 10),
+    ("svrg", 1, {}, lambda R, p, ns: R * ns),
+    ("saga", 1, {}, lambda R, p, ns: R * ns),
+]
+
+
+@pytest.mark.parametrize("algo,p,kw,expected", VR_SOLVES,
+                         ids=[f"{a}-{kw}" for a, _, kw, _ in VR_SOLVES])
+def test_fused_solve_launches_k1_once_per_inner_step(device, algo, p, kw,
+                                                     expected):
+    """Every VR algorithm through ``repro_torch.solve`` on the card, fused
+    and unfused on the same seed: K1's launch count and the agreement."""
+    import repro_torch
+    from repro_torch.config import ConvexConfig
+    cfg = ConvexConfig(problem="logistic", n=40, d=24, workers=p)
+    R = 3
+    runs = {}
+    for fused in (True, False):
+        before = vr_kernel.launches
+        runs[fused] = repro_torch.solve(repro_torch.RunSpec(
+            algo, p=p, rounds=R, fused=fused, **kw), cfg)
+        assert vr_kernel.launches - before == runs[fused].launches[
+            "vr_update"]
+    assert runs[True].launches["vr_update"] == expected(R, p, 40)
+    assert runs[False].launches["vr_update"] == 0
+    assert runs[True].device == torch.cuda.get_device_name(device)
+    assert np.abs(runs[True].x - runs[False].x).max() <= 1e-10
+    assert np.abs(runs[True].rels - runs[False].rels).max() <= 1e-10
+    assert np.isfinite(runs[True].rels).all()
+
+
 # ---------------------------------------------------------------------------
 # K2 RMSNorm and K3 flash attention
 # ---------------------------------------------------------------------------

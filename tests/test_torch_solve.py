@@ -1,6 +1,8 @@
 """The PyTorch port's solver path against the JAX reference: Algorithm 1
 (``centralvr``, permutation and uniform sampling) and Algorithm 2
-(``centralvr_sync``), fused and unfused, with and without a prox.
+(``centralvr_sync``), fused and unfused, with and without a prox; and
+``RunSpec``'s validation for all eleven algorithms (the other nine run in
+``tests/test_torch_baselines.py`` and ``tests/test_torch_distributed.py``).
 
 Both packages get the same data (built by the reference, passed through
 numpy) and the same visit orders (the reference's ``jax.random`` draws,
@@ -8,6 +10,7 @@ replayed by ``repro_torch.convert``). The reference's fused runs execute
 its Pallas kernel in interpret mode; the port's fused runs go through its
 kernel wrapper, which runs the kernel's plain version on CPU tensors.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -165,8 +168,8 @@ def test_runspec_refuses_like_the_reference(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="sgd"), "item 4"),
-    (dict(algo="dsvrg", p=2), "item 5"),
+    (dict(algo="centralvr_async", p=2, backend="spmd"), "item 9"),
+    (dict(algo="centralvr_async", p=2, elastic=True), "item 11"),
     (dict(algo="centralvr", backend="spmd"), "item 9"),
     (dict(algo="centralvr_sync", p=2, topology="process"), "item 11"),
     (dict(algo="centralvr", sampling="sparse"), "item 8"),
@@ -175,6 +178,39 @@ def test_unported_parts_raise_naming_the_roadmap_item(kw, item):
     repro.RunSpec(**kw)            # valid in the reference
     with pytest.raises(NotImplementedError, match=item):
         repro_torch.RunSpec(**kw)
+
+
+def _grid():
+    """Every combination of the spec's axes over a few values each."""
+    import itertools
+    axes = dict(p=(1, 2), fused=(False, True, "auto"),
+                prox=(None, "l1:0.01", "group_l2:0.01:2"),
+                snapshot=(None, "last", "avg", "rand"),
+                fetch=(None, "instant", "stale"), speeds=(None, (1.0, 2.0)),
+                tau=(None, 3), decay=(0.0, 0.5))
+    for values in itertools.product(*axes.values()):
+        yield dict(zip(axes, values))
+
+
+@pytest.mark.parametrize("algo", list(repro_torch.REGISTRY))
+def test_runspec_accepts_what_the_reference_accepts(algo):
+    """For every algorithm, every combination the reference's RunSpec
+    accepts with backend="vmap" and topology="local" is accepted (and
+    resolved alike) by the port's; every one it refuses is refused with
+    the same error."""
+    accepted = 0
+    for kw in _grid():
+        try:
+            want = repro.RunSpec(algo, **kw)
+        except (ValueError, NotImplementedError) as e:
+            with pytest.raises(type(e)) as have:
+                repro_torch.RunSpec(algo, **kw)
+            assert str(have.value) == str(e)
+            continue
+        have = repro_torch.RunSpec(algo, **kw)
+        assert dataclasses.asdict(have) == dataclasses.asdict(want)
+        accepted += 1
+    assert accepted > 0
 
 
 def test_solve_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
