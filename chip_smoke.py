@@ -9,14 +9,16 @@ Phases, each of which raises on failure:
   1. device: name, compute capability (must be 9.0), name and power limit
      as nvidia-smi reports them;
   2. build: compiles the hand-written CUDA kernels ``vr_update`` (K1),
-     ``rmsnorm`` (K2), ``flash_attention`` (K3) and ``ssd_scan`` (K4) from
-     the checkout's sources, one nvcc each, all started together
+     ``vr_epoch`` (K1's epoch route for the convex paths), ``rmsnorm``
+     (K2), ``flash_attention`` (K3) and ``ssd_scan`` (K4) from the
+     checkout's sources, one nvcc each, all started together
      (sm_90a), timed; prints each kernel's ptxas registers and spills, the
      number of HGMMA (wgmma) instructions in K3's SASS and of HMMA
      (mma.sync) instructions in K4's (``cuobjdump -sass``; each must be
      above 0);
   3. each kernel against its plain PyTorch version on the card. K1 at the
-     convex path's shapes (8, 1000) and (1, 90), float64 and float32, and
+     convex paths' former shapes (8, 1000) and (1, 90), float64 and
+     float32, and
      (1, 1000) and (1, 20) (the single-worker events of Algorithms 3 and
      5, the Fig. 1 panel) in float64, SAGA off and on, decay 0 and 2e-4,
      prox none / l1 / elasticnet / box: largest absolute error <= 1e-12 in float64, <= 1e-6 of the
@@ -38,16 +40,25 @@ Phases, each of which raises on failure:
      shape (B 4, S 2048, 24 heads, P 64, N 128, chunk 64), at S 2000, at
      the reduced config's shape (P 16, N 16, chunk 8) and at the training
      shape with fast-decaying heads (dt >= 4, exp(L) underflows): <= 1e-4
-     absolute and relative, the reference's kernel tolerance;
+     absolute and relative, the reference's kernel tolerance. vr_epoch,
+     one epoch against its plain version (a loop of K1's, T cut to 5000
+     where longer), every output within 1e-10 of its largest magnitude:
+     at the paths' shapes with their lanes ((8, 1000) T 5000 centralvr;
+     (1, 90) ridge; (1, 20) centralvr, saga and svrg with repeated
+     indices; (1, 1000) centralvr and, T 100, saga; (8, 1000) svrg),
+     every lane x loss x prox at (2, 90) with repeated indices, and per
+     lane odd d 999, dense repeats (n 5) and d 20000 (state above the
+     on-chip capacity); A off 16-byte alignment and d at the on-chip
+     capacity (4096, 8 coordinates a thread);
   4. convex main path, float64, through ``repro_torch.solve`` with
      fused=True:
      CentralVR-Sync (Algorithm 2) at p=8 on the paper's §6.2
      ``dist-toy-logistic`` (n=5000 per worker, d=1000) and CentralVR
      (Algorithm 1) on ``millionsong`` (n=46371, d=90), 10 rounds each.
-     The kernel's launch count must grow by exactly the number of inner
-     steps; the trajectory must match the unfused run with the same
-     visit orders to 1e-9; every rel must be finite and the last below
-     the first;
+     vr_epoch must launch exactly once per fused epoch call (the init
+     epoch and each round: 11) and K1 never; the trajectory must match
+     the unfused run with the same visit orders to 1e-9; every rel must
+     be finite and the last below the first;
   5. the rest of the convex family through ``repro_torch.solve``, each
      VR run fused and then unfused on the same draws: the paper's Fig. 1
      panel on ``toy-logistic`` (n 5000, d 20; CentralVR, SVRG with
@@ -55,10 +66,11 @@ Phases, each of which raises on failure:
      ``dist-toy-logistic`` at p=8 (CentralVR-Async round-robin, 2 rounds;
      D-SVRG, tau 2*ns, 3 rounds; D-SAGA with instant and with stale
      fetch, tau 100, 20 rounds; distributed SGD, EASGD and PS-SVRG, 2
-     rounds each). K1 must launch exactly once per fused inner step (SVRG
-     and SAGA epochs * n, CentralVR-Async rounds * p * ns, D-SVRG rounds *
-     tau with the 8 workers in one launch, D-SAGA rounds * p * tau) and
-     never for an unfused run or SGD, distributed SGD, EASGD or PS-SVRG;
+     rounds each). vr_epoch must launch exactly once per fused epoch
+     call (CentralVR epochs + 1, SVRG and SAGA epochs, CentralVR-Async
+     1 + rounds * p, D-SVRG rounds with the 8 workers in one launch,
+     D-SAGA rounds * p), K1 never, and nothing for an unfused run or SGD,
+     distributed SGD, EASGD or PS-SVRG;
      fused and unfused within 1e-9; every rel finite, the last below the
      first for each VR algorithm. Prints each run's rels, gradient
      evaluations per round, inner steps/s and launches;
@@ -83,16 +95,22 @@ Phases, each of which raises on failure:
      ``mamba2-130m.reduced()``;
   7. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
-     back-to-back calls at the main path's shape), its bound on this
-     card, the time of the one PyTorch call that computes the same
-     function where there is one (``F.rms_norm``, ``F.scaled_dot_product_
-     attention``; timed as a yardstick only; none for K1 and K4) and its
-     largest error against the plain version; K1 also at (1, 90),
-     (1, 1000) and (1, 20) float64 and at the LM steps' shapes, among
-     them Mamba2-130M's (2, 128,983,488) float32, K2 also at 8192 x 768
-     and K3 also in float32 and at hd 256 (``other_shapes``); K1's
-     ``paths`` give each convex run's launches, inner steps/s and
-     gradient evaluations per round. K3's ``[time]``
+     back-to-back calls at the main path's shape; CUDA events for K1 at
+     the LM shapes and for vr_epoch), its bound on this card, the time of
+     the one PyTorch call that computes the same function where there is
+     one (``F.rms_norm``, ``F.scaled_dot_product_attention``; timed as a
+     yardstick only; none for K1, vr_epoch and K4) and its largest error
+     against the plain version; K1 at the LM step's (1, 1,556,113,920)
+     float32, also at the reduced shape and Mamba2-130M's (2,
+     128,983,488), K2 also at 8192 x 768 and K3 also in float32 and at
+     hd 256 (``other_shapes``); K1's ``paths`` the LM runs. vr_epoch per epoch and per step at each convex path's shape
+     (``EPOCH_SHAPES``), its plain version's time over the whole epoch
+     (and per step), its bound
+     (bytes per epoch) beside its serial floor (the probe
+     ``vr_epoch_floor``: barrier, shuffle tree and one exp a step) and
+     which of the two sets the pace; its ``paths`` give each convex
+     run's launches, inner steps/s and gradient evaluations per round.
+     K3's ``[time]``
      lines give its TFLOP/s and share of the bound beside SDPA's. K4's
      give its bound on the tensor cores (bytes; the TF32 operations bound
      and the 3xTF32 floor beside it, and the float32 figure of its first
@@ -100,12 +118,20 @@ Phases, each of which raises on failure:
      its launches per call (one: the state passes between chunks inside
      the launch) and the fused Mamba2-130M run's peak memory.
 
-With ``--profile`` it then traces 2000 fused inner steps of each convex
-path and one fused epoch of each full-width LM (Qwen2 width, Mamba2-130M,
-and Mamba2-130M unfused) with ``torch.profiler`` and prints the device
-time per step, the device busy share against the same steps run
-untraced, the kernels that take the device time, and the backward's
+With ``--profile`` it then traces every fused VR run of phases 4 and 5
+through ``solve`` and one fused epoch of each full-width LM (Qwen2
+width, Mamba2-130M, and Mamba2-130M unfused) with ``torch.profiler`` and
+prints the device time, the device busy share against the same run
+untraced, the kernels that take the device time, and the LM backward's
 device time by autograd node.
+
+``--rates`` runs only the device phase, vr_epoch's device time at each
+convex path's shape, and every fused VR run of phases 4 and 5 through
+``solve`` (after one small solve that builds the kernel), printing each
+run's inner steps/s; ``--src DIR`` imports the
+port from another checkout's ``src`` instead, so that two checkouts are
+timed in one call on one card (``python3 chip_smoke.py --rates --src
+parent/src; python3 chip_smoke.py --rates``).
 
 TF32 is off for matrix products and convolutions, so float32 products
 are full float32 (the convex path runs in float64, the LM in bfloat16).
@@ -120,7 +146,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+
+
+def _src_dir():
+    """The port's ``src`` directory: the checkout's own, or ``--src DIR``
+    (another checkout's, for ``--rates``)."""
+    args = sys.argv[1:]
+    if "--src" in args:
+        return Path(args[args.index("--src") + 1]).resolve()
+    return ROOT / "src"
+
+
+sys.path.insert(0, str(_src_dir()))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core FLOP/s
 # by type, and dense bf16 and TF32 on the tensor cores
@@ -143,6 +180,8 @@ LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
 LOSS_RTOL = 2.0 ** -7           # two bf16 ulps
 UPDATE_RTOL = 0.05
 SSD_TOL = 1e-4                  # the reference's kernel tolerance
+EPOCH_TOL = 1e-10               # vr_epoch: of the output's largest magnitude
+EPOCH_PLAIN_STEPS = 5000        # phase 3: T of the plain host loop cut to this
 
 
 def log(*args):
@@ -427,18 +466,133 @@ def phase_compare_ssd(torch, ssd_kernel, ssd_ref):
     return worst
 
 
+def epoch_inputs(torch, p, n, d, T, *, repeats=False, kind="logistic",
+                 seed=0, offset=0):
+    """Inputs of a vr_epoch call on the card, from a seeded generator:
+    A (p, n, d) with rows of norm ~1 (``offset``: A starts that many
+    float64 elements into its buffer), labels (+-1 for logistic), visit
+    orders (permutations cut to T, or with ``repeats`` uniform draws that
+    repeat indices), x, table, gbar."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f64 = dict(device="cuda", dtype=torch.float64)
+    A = (torch.randn(p * n * d + offset, generator=g, **f64)
+         / d ** 0.5)[offset:].view(p, n, d)
+    b = (torch.randint(0, 2, (p, n), generator=g, device="cuda") * 2.0 - 1.0
+         if kind == "logistic" else torch.randn(p, n, generator=g, **f64))
+    if repeats:
+        orders = torch.randint(0, n, (p, T), generator=g, device="cuda")
+    else:
+        orders = torch.stack([torch.randperm(n, generator=g, device="cuda")
+                              for _ in range(p)])[:, :T].contiguous()
+    x = 0.1 * torch.randn(p, d, generator=g, **f64)
+    table = 0.3 * torch.randn(p, n, generator=g, **f64)
+    gbar = 0.01 * torch.randn(p, d, generator=g, **f64)
+    return A, b.to(torch.float64), orders, x, table, gbar
+
+
+def epoch_cases():
+    """Phase 3's vr_epoch cases: (label, (p, n, d, T), repeats, lane, kind,
+    prox, A's offset). The paths' shapes, each with its lane, T cut to
+    EPOCH_PLAIN_STEPS where longer; every lane x loss x prox at (2, 400,
+    90) with repeated indices; per lane an odd d, dense repeats (n 5:
+    indices recur 1 and 2 steps apart) and a d above the on-chip capacity
+    (state and rows in global memory); A off 16-byte alignment and d at
+    the on-chip capacity (4096: 512 threads of 8 coordinates)."""
+    cut = EPOCH_PLAIN_STEPS
+    lanes = ("centralvr", "saga", "svrg")
+    cases = [
+        ("Alg 2 round", (8, 5000, 1000, 5000), False, "centralvr",
+         "logistic", None, 0),
+        ("Alg 1 millionsong", (1, 46371, 90, cut), False, "centralvr",
+         "ridge", None, 0),
+        ("Fig. 1 centralvr", (1, 5000, 20, 5000), False, "centralvr",
+         "logistic", None, 0),
+        ("Fig. 1 saga", (1, 5000, 20, 5000), True, "saga", "logistic", None,
+         0),
+        ("Fig. 1 svrg", (1, 5000, 20, 5000), True, "svrg", "logistic", None,
+         0),
+        ("Alg 3 event", (1, 5000, 1000, cut), False, "centralvr",
+         "logistic", None, 0),
+        ("Alg 4 round", (8, 5000, 1000, cut), True, "svrg", "logistic",
+         None, 0),
+        ("Alg 5 event", (1, 5000, 1000, 100), True, "saga", "logistic",
+         None, 0),
+    ]
+    for lane in lanes:
+        for kind in ("logistic", "ridge", "huber@0.5", "pseudo_huber"):
+            for prox in (None, "l1:0.05", "elasticnet:0.05:0.3",
+                         "box:-0.2:0.3"):
+                cases.append(("grid", (2, 400, 90, 300), True, lane, kind,
+                              prox, 0))
+    for lane in lanes:
+        cases += [("odd d", (2, 300, 999, 300), True, lane, "logistic",
+                   "l1:0.001", 0),
+                  ("dense repeats", (1, 5, 20, 400), True, lane, "logistic",
+                   None, 0),
+                  ("d above capacity", (1, 64, 20000, 100), True, lane,
+                   "logistic", None, 0)]
+    cases += [("misaligned A", (2, 300, 1000, 300), True, "centralvr",
+               "logistic", None, 1),
+              ("on-chip capacity", (1, 100, 4096, 100), True, "saga",
+               "logistic", None, 0)]
+    return cases
+
+
+def phase_compare_epoch(torch, vr_epoch, vr_ref, proxops):
+    """vr_epoch against its plain version on the card, one epoch per case
+    (``epoch_cases``): every output within EPOCH_TOL of its largest
+    magnitude. Returns the largest absolute and relative errors."""
+    worst_abs = worst_rel = 0.0
+    t0 = time.perf_counter()
+    for k, (label, (p, n, d, T), repeats, lane, kind, prox,
+            offset) in enumerate(epoch_cases()):
+        ins = epoch_inputs(torch, p, n, d, T, repeats=repeats, kind=kind,
+                           seed=30 + k, offset=offset)
+        kw = dict(lane=lane, kind=kind, eta=0.05, decay=2e-4, m=n * p,
+                  prox=proxops.parse(prox) if prox else None)
+        have = vr_epoch.vr_epoch(*ins, **kw)
+        torch.cuda.synchronize()
+        want = vr_ref.vr_epoch_ref(*ins, **kw)
+        errs = []
+        for name, h, w in zip(("x", "table", "gbar", "acc"), have, want):
+            if w is None:
+                continue
+            err = (h - w).abs().max().item()
+            scale = w.abs().max().item()
+            if not (bool(torch.isfinite(h).all())
+                    and err <= EPOCH_TOL * scale):
+                raise AssertionError(
+                    f"vr_epoch {label} {lane} {kind} {prox} ({p}, {n}, {d})"
+                    f" T {T}: {name} max abs err {err} > {EPOCH_TOL} of "
+                    f"{scale}")
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / scale if scale else 0.0)
+            errs.append(f"{name} {err:.3e}")
+        if label != "grid":
+            plan = vr_epoch.launch_plan(p, d)
+            log(f"[compare] vr_epoch {label} {lane} {kind} prox {prox} "
+                f"(p {p}, n {n}, d {d}, T {T}, repeats {repeats}): "
+                f"{plan.threads} threads of {plan.coords} coordinates; max "
+                f"abs err {', '.join(errs)}")
+    log(f"[compare] vr_epoch vs plain version: {len(epoch_cases())} cases "
+        f"in {time.perf_counter() - t0:.1f} s, max abs err {worst_abs!r}, "
+        f"largest error over its output's largest magnitude {worst_rel!r} "
+        f"(tolerance {EPOCH_TOL})")
+    return worst_abs, worst_rel
+
+
 def drive(torch, solve, spec_kw, cfg, orders, kernels, label, *, launches,
           inner_steps, evals, vr=True):
     """One main-path run through ``solve`` on the given draws: the fused
     run and, for a VR algorithm, its unfused twin on the same draws (the
-    other algorithms have no fused form). Gates: K1 launched exactly
-    ``launches`` times (one per fused inner step) and no other kernel,
-    the unfused twin launched nothing, fused and unfused within 1e-9,
-    every rel finite, for a VR algorithm the last below the first, and
-    the run on the card. ``inner_steps`` counts the run's inner steps
-    (init epoch included; workers stepping together count once) and
-    ``evals`` its gradient evaluations per round (Table 1). Returns the
-    run's record."""
+    other algorithms have no fused form). Gates: vr_epoch launched exactly
+    ``launches`` times (one per fused epoch or inner loop), K1 and every
+    other kernel never, the unfused twin launched nothing, fused and
+    unfused within 1e-9, every rel finite, for a VR algorithm the last
+    below the first, and the run on the card. ``inner_steps`` counts the
+    run's inner steps (init epoch included; workers stepping together
+    count once) and ``evals`` its gradient evaluations per round (Table
+    1). Returns the run's record."""
     import numpy as np
 
     from repro_torch import RunSpec
@@ -454,13 +608,13 @@ def drive(torch, solve, spec_kw, cfg, orders, kernels, label, *, launches,
     wall = time.perf_counter() - t0
     counts = read_counts(kernels)
     peak = torch.cuda.max_memory_allocated()
-    if counts["vr_update"] != launches or \
-            first.launches["vr_update"] != launches:
-        raise AssertionError(f"{label}: vr_update launched "
-                             f"{counts['vr_update']} times, expected "
-                             f"{launches} (one per fused inner step)")
-    if any(n for name, n in counts.items() if name != "vr_update"):
-        raise AssertionError(f"{label}: launched LM kernels: {counts}")
+    want = dict.fromkeys(kernels, 0)
+    want["vr_epoch"] = launches
+    if counts != want or first.launches != {"vr_update": 0,
+                                            "vr_epoch": launches}:
+        raise AssertionError(f"{label}: launched {counts} (solve counted "
+                             f"{first.launches}), expected {want}: one "
+                             f"vr_epoch per fused epoch call, nothing else")
     if first.device != torch.cuda.get_device_name(0):
         raise AssertionError(f"{label}: ran on {first.device}")
     rels = first.rels
@@ -484,48 +638,58 @@ def drive(torch, solve, spec_kw, cfg, orders, kernels, label, *, launches,
         f"({rate:.1f} inner steps/s, {inner_steps} inner steps), "
         + (f"unfused wall {wall_u:.3f} s ({inner_steps / wall_u:.1f} inner "
            f"steps/s), " if vr else "")
-        + f"K1 launches {counts['vr_update']}, gradient evaluations per "
-        f"round {evals}, peak memory {peak / 2**20:.1f} MiB, max |fused - "
-        f"unfused| {diff!r}, eta {first.spec.eta!r}")
+        + f"vr_epoch launches {launches}, K1 launches {counts['vr_update']}"
+        f", gradient evaluations per round {evals}, peak memory "
+        f"{peak / 2**20:.1f} MiB, max |fused - unfused| {diff!r}, eta "
+        f"{first.spec.eta!r}")
     if not (len(rels) == rounds and np.isfinite(rels).all()):
         raise AssertionError(f"{label}: rels not finite: {rels}")
     if vr and not rels[-1] < rels[0]:
         raise AssertionError(f"{label}: no progress, rels {rels}")
     if not diff <= 1e-9:
         raise AssertionError(f"{label}: fused and unfused differ by {diff}")
-    return dict(label=label, launches=counts["vr_update"], wall_s=wall,
-                unfused_wall_s=wall_u, steps=launches,
-                inner_steps=inner_steps, inner_steps_s=rate,
-                evals_per_round=evals, peak_bytes=peak,
+    return dict(label=label, launches=launches,
+                k1_launches=counts["vr_update"], wall_s=wall,
+                unfused_wall_s=wall_u, inner_steps=inner_steps,
+                inner_steps_s=rate, evals_per_round=evals, peak_bytes=peak,
                 rels=[float(r) for r in rels], max_diff=diff)
 
 
-def phase_main_path(torch, kernels):
-    from repro_torch import solve
+def main_runs(torch):
+    """Phase 4's runs, with their draws: (label, spec, cfg, draws,
+    vr_epoch launches, inner steps, gradient evaluations per round, VR
+    algorithm). One vr_epoch launch for the init epoch and one per round
+    or epoch."""
     from repro_torch.configs.paper_convex import PRESETS
     from repro_torch.core import centralvr, distributed
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dist = PRESETS["dist-toy-logistic"]
-    sync_orders = distributed.draw_sync_orders(gen, dist.workers, dist.n,
-                                               ROUNDS)
-    ms = PRESETS["millionsong"]
-    cvr_orders = centralvr.draw_orders(gen, ms.n, ROUNDS)
+    dist, ms = PRESETS["dist-toy-logistic"], PRESETS["millionsong"]
     return [
-        drive(torch, solve, dict(algo="centralvr_sync", p=dist.workers,
-                                 rounds=ROUNDS), dist, sync_orders, kernels,
-              "centralvr_sync p=8 dist-toy-logistic (5000x1000 per worker)",
-              launches=ROUNDS * dist.n, inner_steps=(ROUNDS + 1) * dist.n,
-              evals=dist.workers * dist.n),
-        drive(torch, solve, dict(algo="centralvr", rounds=ROUNDS), ms,
-              cvr_orders, kernels, "centralvr millionsong (46371x90)",
-              launches=ROUNDS * ms.n, inner_steps=(ROUNDS + 1) * ms.n,
-              evals=ms.n),
+        ("centralvr_sync p=8 dist-toy-logistic (5000x1000 per worker)",
+         dict(algo="centralvr_sync", p=dist.workers, rounds=ROUNDS), dist,
+         distributed.draw_sync_orders(gen, dist.workers, dist.n, ROUNDS),
+         ROUNDS + 1, (ROUNDS + 1) * dist.n, dist.workers * dist.n, True),
+        ("centralvr millionsong (46371x90)",
+         dict(algo="centralvr", rounds=ROUNDS), ms,
+         centralvr.draw_orders(gen, ms.n, ROUNDS), ROUNDS + 1,
+         (ROUNDS + 1) * ms.n, ms.n, True),
     ]
 
 
-def phase_family(torch, kernels):
-    """The rest of the convex family through ``solve`` on the paper's
+def drive_all(torch, kernels, runs):
+    from repro_torch import solve
+    return [drive(torch, solve, spec, cfg, draws, kernels, label,
+                  launches=launches, inner_steps=steps, evals=evals, vr=vr)
+            for label, spec, cfg, draws, launches, steps, evals, vr in runs]
+
+
+def phase_main_path(torch, kernels):
+    return drive_all(torch, kernels, main_runs(torch))
+
+
+def family_runs(torch):
+    """Phase 5's runs, the rest of the convex family on the paper's
     settings: the Fig. 1 panel on ``toy-logistic`` (n 5000, d 20),
     CentralVR against SVRG (snapshot last), SAGA and SGD, 10 epochs each;
     and §6.2's ``dist-toy-logistic`` (p 8, 5000 x 1000 per worker):
@@ -533,7 +697,6 @@ def phase_family(torch, kernels):
     D-SAGA with instant and stale fetch (tau 100, 20 rounds), distributed
     SGD, EASGD (tau 16) and PS-SVRG (2 rounds each). Every run's draws
     are made once and given to the fused run and its unfused twin."""
-    from repro_torch import solve
     from repro_torch.configs.paper_convex import PRESETS
     from repro_torch.core import baselines as bl
     from repro_torch.core import centralvr
@@ -545,34 +708,35 @@ def phase_family(torch, kernels):
     p, ns = dist.workers, dist.n
     tau_dsvrg, tau_dsaga, tau_easgd = 2 * ns, 100, 16
     blocks = max(ns // tau_easgd, 1)
-    # (label, spec, cfg, draws, K1 launches, inner steps, gradient
-    #  evaluations per round, VR algorithm)
+    # (label, spec, cfg, draws, vr_epoch launches (one per fused epoch
+    #  call: the init epoch, each epoch or round, each event), inner steps,
+    #  gradient evaluations per round, VR algorithm)
     runs = [
         ("centralvr toy-logistic (5000x20)",
          dict(algo="centralvr", rounds=E), toy,
-         centralvr.draw_orders(gen, n, E), E * n, (E + 1) * n, n, True),
+         centralvr.draw_orders(gen, n, E), E + 1, (E + 1) * n, n, True),
         ("svrg toy-logistic (snapshot last)",
          dict(algo="svrg", rounds=E, snapshot="last"), toy,
-         bl.draw_svrg_orders(gen, n, E, n), E * n, E * n, 3 * n, True),
+         bl.draw_svrg_orders(gen, n, E, n), E, E * n, 3 * n, True),
         ("saga toy-logistic", dict(algo="saga", rounds=E), toy,
-         bl.draw_saga_orders(gen, n, E), E * n, E * n, n, True),
+         bl.draw_saga_orders(gen, n, E), E, E * n, n, True),
         ("sgd toy-logistic", dict(algo="sgd", rounds=E), toy,
          bl.draw_sgd_orders(gen, n, E), 0, E * n, n, False),
         ("centralvr_async p=8 dist-toy-logistic (round-robin)",
          dict(algo="centralvr_async", p=p, rounds=2), dist,
-         ds.draw_async_orders(gen, p, ns, 2), 2 * p * ns, ns + 2 * p * ns,
+         ds.draw_async_orders(gen, p, ns, 2), 1 + 2 * p, ns + 2 * p * ns,
          p * ns, True),
         ("dsvrg p=8 dist-toy-logistic (tau 2*ns)",
          dict(algo="dsvrg", p=p, rounds=3), dist,
-         ds.draw_dsvrg_orders(gen, p, ns, 3, tau_dsvrg), 3 * tau_dsvrg,
-         3 * tau_dsvrg, p * ns + 2 * p * tau_dsvrg, True),
+         ds.draw_dsvrg_orders(gen, p, ns, 3, tau_dsvrg), 3, 3 * tau_dsvrg,
+         p * ns + 2 * p * tau_dsvrg, True),
     ]
     for fetch in ("instant", "stale"):
         runs.append((
             f"dsaga p=8 dist-toy-logistic (fetch {fetch}, tau 100)",
             dict(algo="dsaga", p=p, rounds=20, tau=tau_dsaga, fetch=fetch),
-            dist, ds.draw_dsaga_orders(gen, p, ns, 20, tau_dsaga),
-            20 * p * tau_dsaga, 20 * p * tau_dsaga, p * tau_dsaga, True))
+            dist, ds.draw_dsaga_orders(gen, p, ns, 20, tau_dsaga), 20 * p,
+            20 * p * tau_dsaga, p * tau_dsaga, True))
     runs += [
         ("dist_sgd p=8 dist-toy-logistic (tau ns)",
          dict(algo="dist_sgd", p=p, rounds=2), dist,
@@ -587,10 +751,12 @@ def phase_family(torch, kernels):
          bl.draw_ps_svrg_orders(gen, p, ns, 2), 0, 2 * 2 * ns,
          p * ns + 2 * p * 2 * ns, False),
     ]
+    return runs
+
+
+def phase_family(torch, kernels):
     t0 = time.perf_counter()
-    out = [drive(torch, solve, spec, cfg, draws, kernels, label,
-                 launches=launches, inner_steps=steps, evals=evals, vr=vr)
-           for label, spec, cfg, draws, launches, steps, evals, vr in runs]
+    out = drive_all(torch, kernels, family_runs(torch))
     log(f"[path] convex family: {len(out)} runs in "
         f"{time.perf_counter() - t0:.1f} s")
     return out
@@ -720,11 +886,11 @@ def expected_launches(cfg, A, W):
     (L layers, A microbatches, W workers): the forward and the block's
     recompute each launch K2 for every block norm (two per attn block, one
     per ssm block) and K3 or K4 once per block, plus K2 once for the final
-    norm; K1 once."""
+    norm; K1 once; vr_epoch (the convex paths' route) never."""
     L = cfg.num_layers
     ssm = cfg.family == "ssm"
     norms = 1 if ssm else 2
-    return {"vr_update": 1,
+    return {"vr_update": 1, "vr_epoch": 0,
             "rmsnorm": (2 * norms * L + 1) * A * W,
             "flash_attention": 0 if ssm else 2 * L * A * W,
             "ssd_scan": 2 * L * A * W if ssm else 0}
@@ -819,30 +985,6 @@ def eager_ms(torch, fn, calls=2000):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / calls
-
-
-def time_vr_update(torch, np, vr_kernel, vr_ref, shape):
-    rng = np.random.default_rng(1)
-    ts = [torch.from_numpy(rng.standard_normal(shape)).cuda()
-          for _ in range(5)]
-    kw = dict(eta=1e-3, m=shape[1] * 5, saga=False, decay=2e-4, prox=None)
-    kernel = lambda: vr_kernel.vr_update(*ts, inplace=True, **kw)  # noqa: E731
-    plain = lambda: vr_ref.vr_update_ref(*ts, **kw)                 # noqa: E731
-    elems = shape[0] * shape[1]
-    itemsize = ts[0].element_size()
-    bytes_s = VR_STREAMS * elems * itemsize / PEAK_BYTES_S
-    ops_s = VR_OPS_PER_ELEMENT * elems / PEAK_FLOPS["float64"]
-    rec = dict(shape=list(shape), dtype="float64",
-               ms=graph_ms(torch, kernel), plain_ms=graph_ms(torch, plain),
-               eager_ms=eager_ms(torch, kernel),
-               plain_eager_ms=eager_ms(torch, plain),
-               bound_ms=max(bytes_s, ops_s) * 1e3,
-               bound_by="bytes" if bytes_s >= ops_s else "operations")
-    log(f"[time] vr_update {shape} float64: kernel {rec['ms']!r} ms/launch "
-        f"(graph replay), {rec['eager_ms']!r} ms/launch from Python; plain "
-        f"{rec['plain_ms']!r} ms (graph), {rec['plain_eager_ms']!r} ms "
-        f"(Python); bound {rec['bound_ms']!r} ms ({rec['bound_by']})")
-    return rec
 
 
 def time_rmsnorm(torch, rms_kernel, rms_ref, rows=1024, d=3584):
@@ -1028,51 +1170,176 @@ def vr_update_lm(torch, vr_kernel, vr_ref, shape, timed):
     return rec
 
 
-def phase_profile(torch, steps=2000):
-    """Where a fused inner step's time goes: device time per step and the
-    device's busy share, from ``torch.profiler`` over ``steps`` steps of
-    each path's fused epoch body (from a zero state: the values do not
-    change the work)."""
+def epoch_bound(p, d, T, unique, lane):
+    """The least time of one epoch at the card's peak rates, from this
+    run's inputs: bytes are each visited row, label and table entry once
+    (``unique`` distinct (worker, index) pairs), the orders, x in and out,
+    gbar in (and out with saga), acc out, the table written back
+    (centralvr, saga); operations ~11 a coordinate a step (dot 2, g and
+    g_old 2, v 2, x 3, acc or gbar 2-3) and ~10 a step for the residual,
+    in float64. Returns (bound ms, bytes or operations, bytes)."""
+    table_out = 0 if lane == "svrg" else unique
+    nbytes = 8 * (unique * d + 2 * unique + table_out + p * T
+                  + p * d * (4 if lane == "saga" else 3))
+    ops = p * T * (11 * d + 10)
+    bytes_s = nbytes / PEAK_BYTES_S
+    ops_s = ops / PEAK_FLOPS["float64"]
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes)
+
+
+def epoch_kernel_ms(torch, vr_epoch, p, n, d, T, lane, repeats, kind):
+    """vr_epoch's device time per epoch at one shape: CUDA events over
+    back-to-back launches in place. Returns (ms, inputs, keywords)."""
+    ins = epoch_inputs(torch, p, n, d, T, repeats=repeats, kind=kind,
+                       seed=50)
+    A, b, orders, x, table, gbar = ins
+    kw = dict(lane=lane, kind=kind, eta=1e-3, decay=2e-4, m=n * p,
+              prox=None)
+    outs = (x.clone(), table.clone(), gbar.clone(),
+            torch.empty_like(x) if lane == "centralvr" else None)
+    calls = max(3, min(200, 200000 // T))
+    ms = event_ms(torch, lambda: vr_epoch._launch(A, b, orders, *outs, **kw),
+                  calls)
+    return ms, ins, kw
+
+
+def time_vr_epoch(torch, vr_epoch, vr_ref, label, p, n, d, T, lane,
+                  repeats, kind="logistic"):
+    """vr_epoch at one convex path's shape: its device time per epoch
+    (``epoch_kernel_ms``), its plain version's time over the whole epoch
+    (host loop of ~10 launches a step, after a 20-step warm-up), the
+    bound, and the serial floor (the probe's chain per step times T). The
+    pace is set by the larger of bound and floor."""
+    ms, ins, kw = epoch_kernel_ms(torch, vr_epoch, p, n, d, T, lane,
+                                  repeats, kind)
+    A, b, orders, x, table, gbar = ins
+    vr_ref.vr_epoch_ref(A, b, orders[:, :20].contiguous(), x, table, gbar,
+                        **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vr_ref.vr_epoch_ref(*ins, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plan = vr_epoch.launch_plan(p, d)
+    floor_calls = 5
+    floor_ms = event_ms(torch, lambda: vr_epoch.serial_floor(
+        p, plan.threads, T), floor_calls)
+    unique = sum(len(torch.unique(orders[w])) for w in range(p))
+    bound_ms, bound_by, nbytes = epoch_bound(p, d, T, unique, lane)
+    rec = dict(label=label, shape=[p, n, d], T=T, lane=lane, dtype="float64",
+               ms=ms, per_step_ms=ms / T, plain_ms=plain_ms,
+               plain_per_step_ms=plain_ms / T,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               serial_floor_ms=floor_ms, serial_floor_step_ms=floor_ms / T,
+               paced_by=("the serial chain" if floor_ms > bound_ms
+                         else bound_by),
+               bound_share=bound_ms / ms, floor_share=floor_ms / ms,
+               threads=plan.threads, coords=plan.coords, library_ms=None)
+    log(f"[time] vr_epoch {label} (p {p}, n {n}, d {d}, T {T}, {lane}): "
+        f"{ms!r} ms an epoch, {ms / T * 1e3!r} us a step (CUDA events); "
+        f"plain {plain_ms!r} ms an epoch ({plain_ms / T * 1e3!r} us a "
+        f"step); bound {bound_ms!r} ms "
+        f"({bound_by}, {nbytes} bytes), {rec['bound_share']!r} of it; "
+        f"serial floor {floor_ms / T * 1e3!r} us a step ({floor_ms!r} ms an "
+        f"epoch, {rec['floor_share']!r} of the epoch's time); paced by "
+        f"{rec['paced_by']}; {plan.threads} threads of {plan.coords} "
+        f"coordinates")
+    return rec
+
+
+# the convex paths' vr_epoch calls: (label, p, n, d, T, lane, repeats, kind)
+EPOCH_SHAPES = [
+    ("centralvr_sync round", 8, 5000, 1000, 5000, "centralvr", False,
+     "logistic"),
+    ("centralvr millionsong epoch", 1, 46371, 90, 46371, "centralvr", False,
+     "ridge"),
+    ("Fig. 1 centralvr epoch", 1, 5000, 20, 5000, "centralvr", False,
+     "logistic"),
+    ("Fig. 1 saga epoch", 1, 5000, 20, 5000, "saga", True, "logistic"),
+    ("Fig. 1 svrg epoch", 1, 5000, 20, 5000, "svrg", True, "logistic"),
+    ("centralvr_async event", 1, 5000, 1000, 5000, "centralvr", False,
+     "logistic"),
+    ("dsvrg round", 8, 5000, 1000, 10000, "svrg", True, "logistic"),
+    ("dsaga event", 1, 5000, 1000, 100, "saga", True, "logistic"),
+]
+
+
+def phase_rates(torch):
+    """Inner steps/s of every fused VR run of phases 4 and 5 through
+    ``solve`` alone (no gates, no unfused twin), after one small fused
+    solve that builds the kernel, and vr_epoch's device time at each
+    path's shape (``EPOCH_SHAPES``); for holding two checkouts of the port
+    against each other on one card (``--rates``, ``--src``). Returns (the
+    runs, the kernel's times)."""
+    import numpy as np
+
+    from repro_torch import RunSpec, solve
+    from repro_torch.config import ConvexConfig
+
+    t0 = time.perf_counter()
+    solve(RunSpec("saga", rounds=1, fused=True),
+          ConvexConfig(problem="logistic", n=40, d=24))
+    torch.cuda.synchronize()
+    log(f"[rates] warm-up (kernel build) {time.perf_counter() - t0:.1f} s")
+    kernel = []
+    try:
+        from repro_torch.kernels.vr_update import epoch as vr_epoch
+    except ImportError:     # a checkout from before the epoch route
+        log("[rates] no vr_epoch in this checkout")
+        shapes = []
+    else:
+        shapes = EPOCH_SHAPES
+    for label, p, n, d, T, lane, repeats, kind in shapes:
+        ms = epoch_kernel_ms(torch, vr_epoch, p, n, d, T, lane, repeats,
+                             kind)[0]
+        log(f"[rates] vr_epoch {label} (p {p}, n {n}, d {d}, T {T}, "
+            f"{lane}): {ms!r} ms an epoch, {ms / T * 1e3!r} us a step")
+        kernel.append(dict(label=label, ms=ms, per_step_ms=ms / T))
+    out = []
+    for label, spec, cfg, draws, _, steps, _, vr in (main_runs(torch)
+                                                     + family_runs(torch)):
+        if not vr:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(RunSpec(fused=True, **spec), cfg, orders=draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not np.isfinite(res.rels).all():
+            raise AssertionError(f"{label}: rels not finite: {res.rels}")
+        log(f"[rates] {label}: fused wall {wall!r} s, {steps / wall!r} "
+            f"inner steps/s, launches {res.launches}, last rel "
+            f"{float(res.rels[-1])!r}")
+        out.append(dict(label=label, wall_s=wall, inner_steps=steps,
+                        inner_steps_s=steps / wall, launches=res.launches))
+    return out, kernel
+
+
+def phase_profile(torch):
+    """Where each fused VR run of phases 4 and 5 spends its time: the
+    run through ``solve`` untraced (wall), then again under
+    ``torch.profiler``: device time, the device's busy share (device
+    time over the untraced wall) and the kernels that take it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.paper_convex import PRESETS
-    from repro_torch.core import centralvr, convex, distributed
-    from repro_torch.core import fused as fusedmod
+    from repro_torch import RunSpec, solve
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    dist, ms = PRESETS["dist-toy-logistic"], PRESETS["millionsong"]
-    sp = distributed.make_distributed(gen, dist)
-    prob = convex.make_problem(gen, ms)
-    sync_state = distributed.SyncState(
-        torch.zeros(sp.d, device="cuda", dtype=sp.A.dtype),
-        torch.zeros(sp.p, sp.ns, device="cuda", dtype=sp.A.dtype),
-        torch.zeros(sp.d, device="cuda", dtype=sp.A.dtype))
-    vr_state = centralvr.VRState(
-        torch.zeros(prob.d, device="cuda", dtype=prob.A.dtype),
-        torch.zeros(prob.n, device="cuda", dtype=prob.A.dtype),
-        torch.zeros(prob.d, device="cuda", dtype=prob.A.dtype))
-    perms = distributed.draw_sync_orders(gen, sp.p, sp.ns, 1)[1][0]
-    order = centralvr.draw_orders(gen, prob.n, 1)[1][0]
-    eta = 1e-3
-    runs = {
-        "centralvr_sync p=8 (8, 1000)": lambda k: distributed.sync_round(
-            sp, sync_state, eta, perms[:, :k],
-            fused=fusedmod.make_params(True, eta, sp.lam, "cuda")),
-        "centralvr millionsong (1, 90)": lambda k: centralvr.epoch(
-            prob, vr_state, eta, order[:k],
-            fused=fusedmod.make_params(True, eta, prob.lam, "cuda")),
-    }
-    for label, run in runs.items():
-        run(50)
+    for label, spec, cfg, draws, _, steps, _, vr in (main_runs(torch)
+                                                     + family_runs(torch)):
+        if not vr:
+            continue
+        run = lambda: solve(RunSpec(fused=True, **spec), cfg,  # noqa: E731
+                            orders=draws)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(steps)
+        run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            run(steps)
+            run()
             torch.cuda.synchronize()
         # device-side rows only (kernels, copies): an operator's row
         # repeats the device time of the kernels it launched
@@ -1080,14 +1347,13 @@ def phase_profile(torch, steps=2000):
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-        device_us = sum(r[0] for r in rows) / steps
-        log(f"[profile] {label}: {wall_us:.2f} us/step untraced, device "
-            f"{device_us:.2f} us/step, busy share "
-            f"{device_us / wall_us:.3f}, device ops "
-            f"{sum(r[1] for r in rows) / steps:.2f}/step")
-        for t, count, key in rows[:8]:
-            log(f"[profile]   {t / steps:8.3f} us/step  {count / steps:5.2f}"
-                f"/step  {key[:90]}")
+        device_ms = sum(r[0] for r in rows) / 1e3
+        log(f"[profile] {label}: {wall_ms:.3f} ms untraced, device "
+            f"{device_ms:.3f} ms, busy share {device_ms / wall_ms:.3f}, "
+            f"{wall_ms * 1e3 / steps:.4f} us per inner step, "
+            f"{sum(r[1] for r in rows)} device ops")
+        for t, count, key in rows[:6]:
+            log(f"[profile]   {t / 1e3:10.3f} ms  {count:6d} x  {key[:80]}")
 
 
 def phase_profile_lm(torch, label, cfg, tcfg, W, fused=True):
@@ -1148,6 +1414,17 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--rates" in sys.argv[1:]:
+        smi = phase_device(torch)
+        log(f"[rates] repro_torch from {_src_dir()}")
+        rates, kernel = phase_rates(torch)
+        log(f"[card] {smi}")
+        log(json.dumps({"rates": rates, "vr_epoch": kernel,
+                        "src": str(_src_dir())}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     import numpy as np
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1156,18 +1433,22 @@ def main():
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.vr_update import epoch as vr_epoch
     from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.kernels.vr_update import ref as vr_ref
     from repro_torch.models import model
     from repro_torch.prox import operators as proxops
 
-    kernels = {"vr_update": vr_kernel, "rmsnorm": rms_kernel,
-               "flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
+    kernels = {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
+               "rmsnorm": rms_kernel, "flash_attention": fa_kernel,
+               "ssd_scan": ssd_kernel}
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build(kernels)
     worst = phase_compare(torch, np, vr_kernel, vr_ref, proxops)
     vr_bf16_err = phase_compare_vr_bf16(torch, vr_kernel, vr_ref)
+    epoch_err, epoch_rel = phase_compare_epoch(torch, vr_epoch, vr_ref,
+                                               proxops)
     rms_err = phase_compare_rmsnorm(torch, rms_kernel, rms_ref)
     fa_err = phase_compare_flash(torch, fa_kernel, fa_ref)
     fa_repaired_err = phase_compare_flash_repaired(torch, fa_kernel, fa_ref)
@@ -1185,10 +1466,8 @@ def main():
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                (2, model.ParamLayout(mamba_full).n),
                                timed=True)
-    sync_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (8, 1000))
-    cvr_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 90))
-    event_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 1000))
-    toy_shape = time_vr_update(torch, np, vr_kernel, vr_ref, (1, 20))
+    epoch_times = [time_vr_epoch(torch, vr_epoch, vr_ref, *shape)
+                   for shape in EPOCH_SHAPES]
     rms_time = time_rmsnorm(torch, rms_kernel, rms_ref)
     rms_mamba_time = time_rmsnorm(torch, rms_kernel, rms_ref, 8192, 768)
     fa_time = time_flash(torch, fa_kernel, fa_ref)
@@ -1203,8 +1482,8 @@ def main():
         for fused in (True, False):
             phase_profile_lm(torch, "mamba2-130m L=24 W=2", mcfg, mtcfg, 2,
                              fused=fused)
-    total = {name: sum(p["launches"] for p in paths) if name == "vr_update"
-             else 0 for name in kernels}
+    total = dict.fromkeys(kernels, 0)
+    total["vr_epoch"] = sum(p["launches"] for p in paths)
     for run in lm:
         for name, n in run["counts"].items():
             total[name] += n
@@ -1214,26 +1493,38 @@ def main():
                                    "peak_bytes",
                                    "unfused_peak_bytes", "loss_err",
                                    "update_err")} for r in lm]
+    head = epoch_times[0]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(f"[card] {smi}")
     log(json.dumps({"kernels": [{
         "name": "vr_update", "route": "cuda",
         "source": "src/repro_torch/kernels/vr_update/csrc/vr_update.cu",
         "replaces": "src/repro/kernels/vr_update/kernel.py:64",
-        "launches": total["vr_update"], "max_abs_err": worst["float64"],
-        "ms": sync_shape["ms"], "plain_ms": sync_shape["plain_ms"],
-        "bound_ms": sync_shape["bound_ms"],
-        "bound_by": sync_shape["bound_by"], "library_ms": None,
-        "shape": sync_shape["shape"], "dtype": "float64",
-        "eager_ms": sync_shape["eager_ms"],
-        "other_shapes": [cvr_shape, event_shape, toy_shape, lm_shape,
-                         lm_red_shape, mamba_shape],
-        "bf16_lane_max_abs_err": vr_bf16_err,
-        "paths": [{k: p[k] for k in ("label", "launches", "steps",
+        "launches": total["vr_update"],
+        "max_abs_err": lm_shape["max_abs_err"],
+        **{k: lm_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "shape", "dtype")},
+        "library_ms": None,
+        "convex_shapes_max_abs_err": worst["float64"],
+        "other_shapes": [lm_red_shape, mamba_shape],
+        "bf16_lane_max_abs_err": vr_bf16_err, "paths": lm_paths}, {
+        "name": "vr_epoch", "route": "cuda",
+        "source": "src/repro_torch/kernels/vr_update/csrc/vr_epoch.cu",
+        "replaces": "src/repro/kernels/vr_update/kernel.py:64",
+        "launches": total["vr_epoch"], "max_abs_err": epoch_err,
+        "max_rel_err": epoch_rel,
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "shape", "T", "lane", "dtype",
+                                "per_step_ms", "plain_per_step_ms", "bytes",
+                                "serial_floor_ms", "serial_floor_step_ms",
+                                "paced_by", "bound_share")},
+        "other_shapes": epoch_times[1:],
+        "paths": [{k: p[k] for k in ("label", "launches", "k1_launches",
                                      "inner_steps", "inner_steps_s",
                                      "evals_per_round", "wall_s",
-                                     "unfused_wall_s", "peak_bytes")}
-                  for p in paths] + lm_paths}, {
+                                     "unfused_wall_s", "peak_bytes",
+                                     "max_diff")}
+                  for p in paths]}, {
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:21",

@@ -8,7 +8,7 @@ Modules:
                   D-SAGA), workers as a batch dimension
   baselines    -- SGD, SVRG, SAGA (Fig. 1); distributed SGD, EASGD, PS-SVRG
   runtime      -- the asynchronous event schedule and its wave algebra
-  fused        -- the VR inner loops through the hand-written vr_update
-                  kernel
+  fused        -- the VR inner loops, each one launch of the hand-written
+                  vr_epoch kernel
   solver       -- RunSpec / solve / RunResult
 """

@@ -8,8 +8,8 @@
 All run on the same substrate as the proposed methods, so comparisons per
 gradient evaluation are exact. SVRG and SAGA share their inner loops with
 D-SVRG and D-SAGA (``distributed._svrg_anchors``,
-``distributed._local_saga_steps``): one ``vr_update`` launch per inner
-step when fused. The decaying step sizes are computed on the host, one
+``distributed._local_saga_steps``): one ``vr_epoch`` launch per inner
+loop when fused. The decaying step sizes are computed on the host, one
 per epoch or round.
 
 Randomness is data: every driver takes its draws as ``orders`` (the
@@ -65,7 +65,7 @@ def run_sgd(prob: Problem, *, eta: float, epochs: int, orders=None,
     if orders is None:
         orders = draw_sgd_orders(_generator(device, seed), prob.n, epochs)
     perms = _as_index(orders, (epochs, prob.n), "per-epoch permutations",
-                      device)
+                      device, prob.n)
     x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
     g0 = convex.grad_norm0(prob)
     rels = []
@@ -113,8 +113,9 @@ def run_svrg(prob: Problem, *, eta: float, epochs: int, inner: int = 0,
     if orders is None:
         orders = draw_svrg_orders(_generator(device, seed), prob.n, epochs,
                                   inner, snapshot)
-    idx = _as_index(orders[0], (epochs, inner), "sample indices", device)
-    snap = (_as_index(orders[1], (epochs,), "anchor indices", device)
+    idx = _as_index(orders[0], (epochs, inner), "sample indices", device,
+                    prob.n)
+    snap = (_as_index(orders[1], (epochs,), "anchor indices", device, inner)
             .tolist() if snapshot == "rand" else [None] * epochs)
     x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
     g0 = convex.grad_norm0(prob, prox=px, eta=eta)
@@ -152,7 +153,8 @@ def run_saga(prob: Problem, *, eta: float, epochs: int, orders=None,
                                    prox=px)
     if orders is None:
         orders = draw_saga_orders(_generator(device, seed), prob.n, epochs)
-    idx = _as_index(orders, (epochs, prob.n), "sample indices", device)
+    idx = _as_index(orders, (epochs, prob.n), "sample indices", device,
+                    prob.n)
     x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
     g0 = convex.grad_norm0(prob, prox=px, eta=eta)
     table = convex.scalar_residual_all(prob, x)
@@ -195,7 +197,8 @@ def run_dist_sgd(sp: ShardedProblem, *, eta: float, rounds: int,
     if orders is None:
         orders = draw_dist_sgd_orders(_generator(device, seed), sp.p, sp.ns,
                                       rounds, tau)
-    idx = _as_index(orders, (rounds, sp.p, tau), "sample indices", device)
+    idx = _as_index(orders, (rounds, sp.p, tau), "sample indices", device,
+                    sp.ns)
     merged = sp.merged()
     x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
     g0 = convex.grad_norm0(merged)
@@ -239,7 +242,7 @@ def run_easgd(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 16,
         orders = draw_easgd_orders(_generator(device, seed), p, sp.ns,
                                    rounds, tau)
     idx = _as_index(orders, (rounds, p, steps_per_round, tau),
-                    "sample indices", device)
+                    "sample indices", device, sp.ns)
     merged = sp.merged()
     xc = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
     xs = torch.zeros((p, sp.d), dtype=sp.A.dtype, device=device)
@@ -285,7 +288,8 @@ def run_ps_svrg(sp: ShardedProblem, *, eta: float, rounds: int,
     if orders is None:
         orders = draw_ps_svrg_orders(_generator(device, seed), sp.p, sp.ns,
                                      rounds, epoch_mult)
-    idx = _as_index(orders, (rounds, inner, sp.p), "sample indices", device)
+    idx = _as_index(orders, (rounds, inner, sp.p), "sample indices", device,
+                    sp.ns)
     merged = sp.merged()
     x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
     g0 = convex.grad_norm0(merged)

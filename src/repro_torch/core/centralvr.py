@@ -40,13 +40,14 @@ class VRState(NamedTuple):
 
 
 def init_state(prob: Problem, eta: float, perm: torch.Tensor,
-               prox=None) -> VRState:
+               prox=None, fused=None) -> VRState:
     """Algorithm 1, line 2: one epoch of plain SGD from x = 0 visiting
-    ``perm``."""
+    ``perm``; ``fused``: as one ``vr_epoch`` launch
+    (``distributed._local_sgd_epoch``)."""
     x0 = torch.zeros(prob.d, dtype=prob.A.dtype, device=prob.A.device)
     x, table, acc = _local_sgd_epoch(prob.A[None], prob.b[None], prob.lam,
                                      prob.kind, x0[None], eta, perm[None],
-                                     prox=prox)
+                                     prox=prox, fused=fused)
     return VRState(x=x[0], table=table[0], gbar=acc[0])
 
 
@@ -64,8 +65,9 @@ def epoch(prob: Problem, state: VRState, eta: float, order: torch.Tensor,
 
     Every index is visited exactly once, so the running accumulator IS
     the table mean (line 11: gbar <- gtilde). ``fused``: kernel
-    parameters from ``fused.make_params`` (one ``vr_update`` launch per
-    step, the prox riding in them), or ``None`` for the unfused body.
+    parameters from ``fused.make_params`` (one ``vr_epoch`` launch for
+    the epoch, the prox riding in them), or ``None`` for the unfused
+    body.
     """
     x, table, acc = _epoch(prob, state, eta, order, fused, prox)
     return VRState(x=x, table=table, gbar=acc)
@@ -116,14 +118,15 @@ def run(prob: Problem, *, eta: float, epochs: int, orders=None,
     if orders is None:
         orders = draw_orders(_generator(device, seed), prob.n, epochs,
                              sampling)
-    init, per = _as_orders(orders, ((prob.n,), (epochs, prob.n)), device)
+    init, per = _as_orders(orders, ((prob.n,), (epochs, prob.n)), device,
+                           prob.n)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     # the fused parameters carry their own copy of the (elementwise) prox
-    # for the kernel epilogue; ``px`` still shapes the init epoch, the
-    # metric and the unfused body
+    # for the kernel epilogue; ``px`` still shapes the metric and the
+    # unfused body
     fused_t = fusedmod.make_params(spec.fused, eta, prob.lam, device,
                                    prox=px)
-    state = init_state(prob, eta, init, prox=px)
+    state = init_state(prob, eta, init, prox=px, fused=fused_t)
     g0 = convex.grad_norm0(prob, prox=px, eta=eta)
     step = epoch if sampling == "permutation" else epoch_uniform
     rels = []

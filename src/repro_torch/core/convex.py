@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.vr_update import ref as vr_ref
+
 # the convex path runs in float64 (the reference's tests enable x64)
 DTYPE = torch.float64
 
@@ -141,18 +143,9 @@ def _pointwise_loss(z, bb, kind: str):
 
 
 def _pointwise_residual(z, bb, kind: str):
-    """s = l'(z; b) per sample — the scalar the VR tables store."""
-    base, delta = loss_params(kind)
-    if base == "logistic":
-        return -bb * torch.sigmoid(-bb * z)
-    if base == "ridge":
-        return 2.0 * (z - bb)
-    r = z - bb
-    if base == "huber":
-        return torch.clamp(r, -delta, delta)
-    if base == "pseudo_huber":
-        return r / torch.sqrt(1.0 + (r / delta) ** 2)
-    raise ValueError(f"unknown problem kind {kind!r}")
+    """s = l'(z; b) per sample — the scalar the VR tables store; defined
+    once, beside the epoch kernel's plain version (``vr_ref.residual``)."""
+    return vr_ref.residual(z, bb, kind)
 
 
 def full_loss(prob: Problem, x: torch.Tensor) -> torch.Tensor:

@@ -102,7 +102,7 @@ def _local_centralvr_epoch(A, b, lam, kind, x, table, gbar, eta, orders,
     (p, d) or (d,), ``orders`` (p, T).
 
     ``fused``: kernel parameters from ``fused.make_params`` — one
-    ``vr_update`` launch per step for all workers — or ``None`` for the
+    ``vr_epoch`` launch for the epoch of all workers — or ``None`` for the
     unfused body. ``prox`` is applied per local step,
     ``x <- prox_{eta*g}(x - eta*v)``; when ``fused`` is set the prox rides
     in its parameters. Returns (x, table, acc), acc = each worker's local
@@ -127,9 +127,33 @@ def _local_centralvr_epoch(A, b, lam, kind, x, table, gbar, eta, orders,
     return x, table, acc
 
 
-def _local_sgd_epoch(A, b, lam, kind, x, eta, orders, prox=None):
+def _local_sgd_epoch(A, b, lam, kind, x, eta, orders, prox=None,
+                     fused=None):
     """One plain-SGD epoch on every worker's shard that fills its table
-    and accumulator (the initialization of Algorithms 1 and 2)."""
+    and accumulator (the initialization of Algorithms 1 and 2).
+
+    ``fused``: kernel parameters from ``fused.make_params`` (their prox is
+    ``prox``): the epoch runs as the CentralVR lane of one ``vr_epoch``
+    launch from a zero table and a zero gbar. That is the SGD epoch only
+    when ``orders`` are permutations of each shard: then every table read
+    is the zero it started with, and the step's ``s*a - 0*a + 0`` is the
+    SGD step's data gradient exactly (the l2 term rides in the kernel's
+    decay). A repeated index would read back the residual the epoch wrote,
+    so the fused epoch refuses orders that are not permutations (one sync
+    a run; the drivers draw permutations)."""
+    if fused is not None:
+        from repro_torch.core import fused as fusedmod
+        n = A.shape[1]
+        if orders.shape[-1] != n or not bool(
+                (orders.sort(-1).values
+                 == torch.arange(n, device=orders.device)).all()):
+            raise ValueError("the fused init epoch needs init orders that "
+                             "are permutations of each shard; use "
+                             "fused=False for other orders")
+        return fusedmod.centralvr_epoch(
+            A, b, kind, x, torch.zeros(b.shape, dtype=A.dtype,
+                                       device=A.device),
+            torch.zeros_like(x), orders, fused)
     ns = A.shape[1]
     rows, labels = convex.gather_epoch(A, b, orders)
     table = torch.zeros(b.shape, dtype=A.dtype, device=A.device)
@@ -156,13 +180,14 @@ class SyncState(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def sync_init(sp: ShardedProblem, eta: float, perms: torch.Tensor,
-              prox=None) -> SyncState:
+              prox=None, fused=None) -> SyncState:
     """Init with one plain-SGD epoch per worker visiting ``perms`` (p, ns),
     then average (line 2). With a prox, locals take prox'd SGD steps and
-    the central average gets one more prox."""
+    the central average gets one more prox. ``fused``: the epoch as one
+    ``vr_epoch`` launch (``_local_sgd_epoch``)."""
     x0 = torch.zeros((sp.p, sp.d), dtype=sp.A.dtype, device=sp.A.device)
     xs, tables, accs = _local_sgd_epoch(sp.A, sp.b, sp.lam, sp.kind, x0, eta,
-                                        perms, prox=prox)
+                                        perms, prox=prox, fused=fused)
     return SyncState(x=proxops.apply_prox(prox, xs.mean(0), eta),
                      tables=tables, gbar=accs.mean(0))
 
@@ -202,9 +227,11 @@ def draw_sync_orders(gen: torch.Generator, p: int, ns: int, rounds: int):
     return init, torch.stack([_randperms(gen, p, ns) for _ in range(rounds)])
 
 
-def _as_index(t, shape, name: str, device) -> torch.Tensor:
-    """One explicit draw array as an int64 tensor on ``device``,
-    shape-checked."""
+def _as_index(t, shape, name: str, device, high: int) -> torch.Tensor:
+    """One draw array as an int64 tensor on ``device``, shape-checked and
+    range-checked: every index in [0, high). This is the one range check
+    of a run's draws (one sync), so the fused epochs launch ``vr_epoch``
+    on them without a check of their own (``epoch.vr_epoch_in_range``)."""
     if t is None:
         raise ValueError(f"orders: {name} are missing, expected shape "
                          f"{tuple(shape)}")
@@ -212,13 +239,19 @@ def _as_index(t, shape, name: str, device) -> torch.Tensor:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"orders: {name} have shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+    if t.numel():
+        lo, hi = (int(v) for v in torch.aminmax(t))
+        if lo < 0 or hi >= high:
+            raise ValueError(f"orders: {name} hold indices in [{lo}, {hi}],"
+                             f" out of range [0, {high})")
     return t
 
 
-def _as_orders(orders, shapes, device, names=("init", "per-round")):
+def _as_orders(orders, shapes, device, high: int,
+               names=("init", "per-round")):
     """Explicit (init, per-round) orders as int64 tensors on ``device``,
-    shape-checked."""
-    return tuple(_as_index(o, shape, f"{name} orders", device)
+    shape- and range-checked (indices into a shard of ``high`` rows)."""
+    return tuple(_as_index(o, shape, f"{name} orders", device, high)
                  for o, shape, name in zip(orders, shapes, names))
 
 
@@ -242,10 +275,10 @@ def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
         orders = draw_sync_orders(_generator(device, seed), sp.p, sp.ns,
                                   rounds)
     init, per = _as_orders(orders, ((sp.p, sp.ns), (rounds, sp.p, sp.ns)),
-                           device)
+                           device, sp.ns)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
-    st = sync_init(sp, eta, init, prox=px)
+    st = sync_init(sp, eta, init, prox=px, fused=fused_t)
     merged = sp.merged()
     g0 = convex.grad_norm0(merged, prox=px, eta=eta)
     rels = []
@@ -278,13 +311,13 @@ class AsyncState(NamedTuple):
 
 
 def async_init(sp: ShardedProblem, eta: float, perms: torch.Tensor,
-               prox=None) -> AsyncState:
+               prox=None, fused=None) -> AsyncState:
     """``sync_init`` visiting ``perms`` (p, ns), with every worker's
     previous contribution and fetch set to the init iterate: Algorithm 3
     line 2 sets x_old = gbar_old = 0 with x_c = x0, which from the
     SGD-init iterate would make the first p events add it a second time
     (same algebra, transient removed, as in the reference)."""
-    st = sync_init(sp, eta, perms, prox=prox)
+    st = sync_init(sp, eta, perms, prox=prox, fused=fused)
 
     def tile(v):
         return v.expand(sp.p, -1).clone()
@@ -368,11 +401,11 @@ def run_async(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
         orders = draw_async_orders(_generator(device, seed), sp.p, sp.ns,
                                    rounds)
     init, events = _as_orders(
-        orders, ((sp.p, sp.ns), (rounds * sp.p, sp.ns)), device,
+        orders, ((sp.p, sp.ns), (rounds * sp.p, sp.ns)), device, sp.ns,
         names=("init", "per-event"))
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
-    st = async_init(sp, eta, init, prox=px)
+    st = async_init(sp, eta, init, prox=px, fused=fused_t)
     schedule = runtime.event_schedule(sp.p, rounds, spec.speeds)
     return _run_events(
         sp, st, lambda st, s, perm: async_event(sp, st, s, eta, perm,
@@ -392,7 +425,7 @@ def _svrg_anchors(A, b, lam, kind, xbar, gbar, eta, idx, fused=None,
     contributes, (p, d): its last inner iterate (``snapshot="last"``),
     the mean of its T inner iterates (``"avg"``), or its iterate after
     step ``r + 1`` (``"rand"``). ``fused`` (``snapshot="last"`` only):
-    one ``vr_update`` launch per step for all workers."""
+    one ``vr_epoch`` launch for the steps of all workers."""
     p = A.shape[0]
     x = xbar.expand(p, -1)
     # the snapshot residuals, one matvec per call
@@ -459,8 +492,8 @@ def run_dsvrg(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 0,
         orders = draw_dsvrg_orders(_generator(device, seed), sp.p, sp.ns,
                                    rounds, tau, snapshot)
     idx = _as_index(orders[0], (rounds, sp.p, tau), "sample indices",
-                    device)
-    snap = (_as_index(orders[1], (rounds,), "anchor indices", device)
+                    device, sp.ns)
+    snap = (_as_index(orders[1], (rounds,), "anchor indices", device, tau)
             .tolist() if snapshot == "rand" else [None] * rounds)
     merged = sp.merged()
     x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
@@ -494,7 +527,7 @@ def _local_saga_steps(A, b, lam, kind, x, table, gbar, eta, n_global, idx,
     (p, n, d), ``b`` and ``table`` (p, n), ``x`` and ``gbar`` (p, d),
     ``idx`` (p, T). The VR step from the scalar table, then the
     running-mean gbar update with the GLOBAL 1/n scaling (line 9, §5.2).
-    ``fused``: one ``vr_update`` launch per step (SAGA lane). Returns
+    ``fused``: one ``vr_epoch`` launch for the steps (saga lane). Returns
     (x, table, gbar)."""
     if fused is not None:
         from repro_torch.core import fused as fusedmod
@@ -635,7 +668,7 @@ def run_dsaga(sp: ShardedProblem, *, eta: float, rounds: int,
         orders = draw_dsaga_orders(_generator(device, seed), sp.p, sp.ns,
                                    rounds, tau)
     idx = _as_index(orders, (rounds * sp.p, tau), "per-event sample indices",
-                    device)
+                    device, sp.ns)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
     stale = spec.fetch == "stale"

@@ -2,12 +2,15 @@
 ``repro/core/fused.py`` (``make_params``, ``centralvr_epoch``,
 ``saga_steps``, ``svrg_steps``).
 
-Each inner step runs its correction, parameter update, prox epilogue and
-accumulator write as ONE launch of the hand-written ``vr_update`` kernel,
-for all p workers at once: the worker axis is the leading dimension of
-every operand, where the reference vmaps over workers. The margin dot
-``a_i.x`` and the rank-1 gradients ``s*a_i`` stay plain torch, as they are
-plain jnp outside the Pallas kernel in the reference.
+Each function runs a whole inner loop of p workers as ONE launch of the
+hand-written ``vr_epoch`` kernel (K1's epoch route,
+``kernels/vr_update/epoch.py``), where the reference runs each as one
+jitted ``lax.scan`` of Pallas launches: per step the margin ``a_i.x``,
+the residual, the correction, parameter update, prox epilogue and the
+accumulator, gbar and table writes. The worker axis is the leading
+dimension of every operand, where the reference vmaps over workers. On
+CPU tensors the wrapper runs the kernel's plain version, a loop of K1's
+plain version (``vr_update_ref``) step by step.
 
 The l2 term ``2*lam*x`` is folded into the kernel's ``decay``. The
 reference pads vectors to its kernel tile; the CUDA kernel masks its
@@ -25,8 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import convex
-from repro_torch.kernels.vr_update import kernel as vr_kernel
+from repro_torch.kernels.vr_update import epoch as vr_epoch
 from repro_torch.prox import operators as proxops
 
 
@@ -60,62 +62,43 @@ def make_params(flag, eta: float, lam: float, device,
 
 def centralvr_epoch(A, b, kind, x, table, gbar, orders, fp: FusedParams):
     """Fused CentralVR epoch for p workers: ``A`` (p, n, d), ``b`` (p, n),
-    ``x`` and ``gbar`` (p, d), ``table`` (p, n), ``orders`` (p, T).
+    ``x`` and ``gbar`` (p, d) (gbar may be (d,)), ``table`` (p, n),
+    ``orders`` (p, T).
 
     The arithmetic of ``distributed._local_centralvr_epoch``'s unfused
-    body with one kernel launch per step. Returns (x, table, acc); ``acc``
-    is each worker's running gtilde accumulator (data term, mean over its
-    shard). The inputs are not modified.
+    body as one ``vr_epoch`` launch (centralvr lane). Returns (x, table,
+    acc); ``acc`` is each worker's running gtilde accumulator (data term,
+    mean over its shard). The inputs are not modified.
     """
     eta, lam, prox = fp
-    n = A.shape[1]
-    rows, labels = convex.gather_epoch(A, b, orders)
-    x = x.clone(memory_format=torch.contiguous_format)
-    gbar = gbar.expand(x.shape).clone(memory_format=torch.contiguous_format)
-    table = table.clone()
-    acc = torch.zeros_like(x)
-    for t in range(orders.shape[1]):
-        a = rows[:, t]
-        idx = orders[:, t:t + 1]
-        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
-                                           labels[:, t], kind)
-        # x and acc are updated in place; gbar is read only (no SAGA)
-        vr_kernel.vr_update(x, s_new[:, None] * a, table.gather(1, idx) * a,
-                            gbar, acc, eta=eta, m=n, saga=False,
-                            decay=2.0 * lam, prox=prox, inplace=True)
-        table.scatter_(1, idx, s_new[:, None])
-    return x, table, acc
+    x = x.contiguous()
+    out, table, _, acc = vr_epoch.vr_epoch_in_range(
+        A, b, _index(orders), x, table.contiguous(),
+        gbar.expand(x.shape).contiguous(), lane="centralvr", kind=kind,
+        eta=eta, decay=2.0 * lam, m=A.shape[1], prox=prox)
+    return out, table, acc
 
 
 def saga_steps(A, b, kind, x, table, gbar, n_global: int, idx,
                fp: FusedParams):
     """Fused SAGA inner loop for p workers: the arithmetic of
-    ``distributed._local_saga_steps`` (SAGA and D-SAGA) — the VR step and the running-mean gbar update (global 1/n scaling) in one
-    launch per step, which writes x and gbar in place. ``A`` (p, n, d),
-    ``b`` and ``table`` (p, n), ``x`` and ``gbar`` (p, d), ``idx`` (p, T).
+    ``distributed._local_saga_steps`` (SAGA and D-SAGA) — the VR step and
+    the running-mean gbar update (global 1/n scaling) — as one
+    ``vr_epoch`` launch (saga lane). ``A`` (p, n, d), ``b`` and ``table``
+    (p, n), ``x`` and ``gbar`` (p, d), ``idx`` (p, T), repeats allowed.
     Returns (x, table, gbar); the inputs are not modified."""
     eta, lam, prox = fp
-    rows, labels = convex.gather_epoch(A, b, idx)
-    x = x.clone(memory_format=torch.contiguous_format)
-    gbar = gbar.clone(memory_format=torch.contiguous_format)
-    table = table.clone()
-    scratch = torch.zeros_like(x)    # the gtilde lane: written, never read
-    for t in range(idx.shape[1]):
-        a = rows[:, t]
-        i = idx[:, t:t + 1]
-        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
-                                           labels[:, t], kind)
-        vr_kernel.vr_update(x, s_new[:, None] * a, table.gather(1, i) * a,
-                            gbar, scratch, eta=eta, m=n_global, saga=True,
-                            decay=2.0 * lam, prox=prox, inplace=True)
-        table.scatter_(1, i, s_new[:, None])
+    x, table, gbar, _ = vr_epoch.vr_epoch_in_range(
+        A, b, _index(idx), x.contiguous(), table.contiguous(),
+        gbar.contiguous(), lane="saga", kind=kind, eta=eta, decay=2.0 * lam,
+        m=n_global, prox=prox)
     return x, table, gbar
 
 
 def svrg_steps(A, b, kind, xbar, sbar, gbar, idx, fp: FusedParams):
     """Fused SVRG inner loop for p workers from the snapshot ``xbar``
     (p, d): the arithmetic of ``distributed._svrg_anchors``' unfused body
-    (SVRG and D-SVRG).
+    (SVRG and D-SVRG) as one ``vr_epoch`` launch (svrg lane).
 
     ``sbar`` (p, n) holds the snapshot residuals of each shard, so the
     anchor gradient is ``sbar[i] * a_i``; ``gbar`` is the full
@@ -125,17 +108,15 @@ def svrg_steps(A, b, kind, xbar, sbar, gbar, idx, fp: FusedParams):
     the unfused body's  (s - sbar)*a + gbar + 2*lam*(x - xbar).
     Returns the final iterates (p, d)."""
     eta, lam, prox = fp
-    n = A.shape[1]
-    rows, labels = convex.gather_epoch(A, b, idx)
-    x = xbar.clone(memory_format=torch.contiguous_format)
-    gbar = (gbar - 2.0 * lam * xbar).contiguous()
-    scratch = torch.zeros_like(x)    # the gtilde lane: written, never read
-    for t in range(idx.shape[1]):
-        a = rows[:, t]
-        s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
-                                           labels[:, t], kind)
-        vr_kernel.vr_update(x, s_new[:, None] * a,
-                            sbar.gather(1, idx[:, t:t + 1]) * a, gbar,
-                            scratch, eta=eta, m=n, saga=False,
-                            decay=2.0 * lam, prox=prox, inplace=True)
+    gbar = (gbar - 2.0 * lam * xbar).expand(xbar.shape).contiguous()
+    x, _, _, _ = vr_epoch.vr_epoch_in_range(
+        A, b, _index(idx), xbar.contiguous(), sbar.contiguous(), gbar,
+        lane="svrg", kind=kind, eta=eta, decay=2.0 * lam, m=A.shape[1],
+        prox=prox)
     return x
+
+
+def _index(orders):
+    """Visit orders as the kernel takes them: int64, contiguous. The
+    drivers range-checked them once a run (``distributed._as_index``)."""
+    return orders.to(torch.int64).contiguous()

@@ -43,7 +43,7 @@ class AlgoCaps(NamedTuple):
     accepts_fetch: bool = False   # fetch="instant"|"stale" discipline?
     accepts_speeds: bool = False  # heterogeneous-speed event schedule?
     accepts_tau: bool = False     # local-step count (inner loop length)?
-    accepts_fused: bool = False   # fused vr_update kernel hot path?
+    accepts_fused: bool = False   # fused vr_epoch kernel hot path?
     accepts_prox: bool = False    # composite objectives (prox= axis)?
     snapshots: Tuple[str, ...] = ()   # supported snapshot= anchors
 
@@ -129,7 +129,7 @@ class RunSpec:
       sampling      "permutation" | "uniform" (Algorithm 1 only)
       prox          composite objective, ``"l1:0.01"`` etc.
                     (``repro_torch.prox.operators``); stored normalized
-      fused         the vr_update kernel path: False (unfused body), True
+      fused         the vr_epoch kernel path: False (unfused body), True
                     (the kernel on a CUDA device, its plain version on the
                     CPU), or "auto" (the kernel on a Hopper card only)
       topology, elastic
@@ -404,8 +404,10 @@ class RunResult:
 
     ``spec`` is the *resolved* spec (eta filled in). ``wall_s`` is the
     wall clock of the driver call up to its last result on the host.
-    ``launches`` counts the hand-written kernel launches the call made
-    (0 on the unfused body and on the CPU). ``device`` names where it ran.
+    ``launches`` counts the hand-written kernel launches the call made,
+    by kernel: ``vr_epoch`` one per fused epoch or inner loop, ``vr_update``
+    (K1's per-step route, the LM's) none (0 on the unfused body and on the
+    CPU). ``device`` names where it ran.
     ``comms`` is the analytical bytes-per-collective model of the run
     (``obs/comms.py``) at the run's element size.
     """
@@ -495,7 +497,10 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     ``orders``: the run's draws, as the driver takes them; None draws
     them from a ``torch.Generator`` seeded with ``spec.seed`` on the
     device. ``repro_torch.convert`` replays the reference's draws in
-    these layouts (n samples; p workers of ns; R = ``spec.rounds``):
+    these layouts (n samples; p workers of ns; R = ``spec.rounds``).
+    Every index is checked once to lie in its range, and a fused run of
+    the three algorithms with an init epoch refuses init orders that are
+    not permutations:
 
       centralvr        (init (n,), per-epoch (R, n)): permutations, or
                        uniform indices with ``sampling="uniform"``
@@ -518,6 +523,7 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     """
     from repro_torch.core import convex, distributed
     from repro_torch.kernels import resolve_device
+    from repro_torch.kernels.vr_update import epoch as vr_epoch
     from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.obs import comms as obs_comms
 
@@ -531,12 +537,13 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
                   else problem)
         eta = convex.auto_eta(merged)
 
-    launches0 = vr_kernel.launches
+    launches0 = (vr_kernel.launches, vr_epoch.launches)
     t0 = time.perf_counter()
     state, x, rels, grad_evals = entry.call(spec, problem, eta, orders)
     rels = rels.cpu().numpy()
     wall = time.perf_counter() - t0
-    launches = {"vr_update": vr_kernel.launches - launches0}
+    launches = {"vr_update": vr_kernel.launches - launches0[0],
+                "vr_epoch": vr_epoch.launches - launches0[1]}
 
     if spec.metric_every > 1 and rels.size:
         idx = np.arange(spec.metric_every - 1, rels.size, spec.metric_every)

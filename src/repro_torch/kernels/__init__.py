@@ -2,7 +2,9 @@
 version (``ref.py``), which the wrapper runs for tensors on the CPU:
 
   vr_update/        K1, fused CentralVR/SAGA update; replaces the Pallas
-                    kernel ``repro/kernels/vr_update/kernel.py``
+                    kernel ``repro/kernels/vr_update/kernel.py``: per step
+                    (``kernel.py``, the LM's) and per epoch of the convex
+                    paths (``epoch.py``, ``csrc/vr_epoch.cu``)
   rmsnorm/          K2, fused RMSNorm; replaces
                     ``repro/kernels/rmsnorm/kernel.py``
   flash_attention/  K3, causal GQA flash attention, forward; replaces

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA card: the hand-written
-kernels (K1 vr_update, K2 rmsnorm, K3 flash_attention, K4 ssd_scan)
-against their plain versions, on the card, the fused Mamba2 step, and the
-fused trainer's refusal to fall back when a kernel does not build.
+kernels (K1 vr_update and its epoch route vr_epoch, K2 rmsnorm, K3
+flash_attention, K4 ssd_scan) against their plain versions, on the card,
+the fused convex solves and the fused Mamba2 step, and the fused paths'
+refusal to fall back when a kernel does not build.
 
 Run them on a machine with a Hopper card (this file imports no jax, and
 ``--noconftest`` skips the suite's jax set-up):
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.vr_update import epoch as vr_epoch
 from repro_torch.kernels.vr_update import kernel as vr_kernel
 from repro_torch.kernels.vr_update import ref as vr_ref
 from repro_torch.prox import operators as proxops
@@ -85,76 +87,184 @@ def _loop_inputs(device, p, n=5000, d=1000, T=200, seed=0):
 @pytest.mark.parametrize("prox", [None, "l1:0.01"])
 @pytest.mark.parametrize("p", [1, 8])
 def test_saga_and_svrg_steps_on_the_card_match_unfused(device, p, prox):
-    """K1's SAGA lane (gbar updated in the launch, 1/m scaling) and its
-    SVRG feed (snapshot residuals as g_old) on the convex path's shapes,
-    (1, 1000) and (8, 1000) float64: one launch per step, fused within
-    1e-10 of the unfused bodies."""
+    """vr_epoch's SAGA lane (gbar updated in the step, 1/m scaling) and
+    its SVRG lane (snapshot residuals as g_old) on the convex path's
+    shapes, (1, 1000) and (8, 1000) float64: one launch for the T steps,
+    none of K1, fused within 1e-10 of the unfused bodies."""
     from repro_torch.core import distributed
     from repro_torch.core import fused as tfused
     A, b, x, table, gbar, idx = _loop_inputs(device, p)
     eta, lam = 0.05, float(np.float32(1e-4))
     px = proxops.parse(prox) if prox else None
     fp = tfused.make_params(True, eta, lam, device, prox=px)
-    T = idx.shape[1]
-    before = vr_kernel.launches
+    before = (vr_kernel.launches, vr_epoch.launches)
     have = tfused.saga_steps(A, b, "logistic", x, table, gbar, 5000 * p,
                              idx, fp)
     torch.cuda.synchronize()
-    assert vr_kernel.launches == before + T
+    assert (vr_kernel.launches, vr_epoch.launches) == (before[0],
+                                                       before[1] + 1)
     want = distributed._local_saga_steps(A, b, lam, "logistic", x, table,
                                          gbar, eta, 5000 * p, idx, prox=px)
     for h, w in zip(have, want):
         assert (h - w).abs().max().item() <= 1e-10
     xbar = x[0]
     g = gbar[0] + 2.0 * lam * xbar
-    before = vr_kernel.launches
+    before = (vr_kernel.launches, vr_epoch.launches)
     have = distributed._svrg_anchors(A, b, lam, "logistic", xbar, g, eta,
                                      idx, fused=fp, prox=px)
     torch.cuda.synchronize()
-    assert vr_kernel.launches == before + T
+    assert (vr_kernel.launches, vr_epoch.launches) == (before[0],
+                                                       before[1] + 1)
     want = distributed._svrg_anchors(A, b, lam, "logistic", xbar, g, eta,
                                      idx, prox=px)
     assert (have - want).abs().max().item() <= 1e-10
 
 
-# launches of K1 one fused solve makes: one per inner step (R rounds, p
-# workers of ns samples; dsvrg's p workers share one launch a step)
+# vr_epoch launches of one fused solve over R rounds: one per fused epoch
+# or inner loop (the init epoch of Algorithms 1-3 included; dsvrg's p
+# workers share one launch a round; the events of Algorithms 3 and 5 run
+# one worker each); K1 launches none
 VR_SOLVES = [
-    ("centralvr", 1, {}, lambda R, p, ns: R * ns),
-    ("centralvr_sync", 3, {}, lambda R, p, ns: R * ns),
+    ("centralvr", 1, {}, lambda R, p: R + 1),
+    ("centralvr", 1, {"sampling": "uniform"}, lambda R, p: R + 1),
+    ("centralvr_sync", 3, {}, lambda R, p: R + 1),
     ("centralvr_async", 3, {"speeds": (1.0, 2.0, 0.5)},
-     lambda R, p, ns: R * p * ns),
-    ("dsvrg", 3, {}, lambda R, p, ns: R * 2 * ns),
-    ("dsaga", 3, {"tau": 10, "fetch": "stale"}, lambda R, p, ns: R * p * 10),
-    ("dsaga", 3, {"tau": 10}, lambda R, p, ns: R * p * 10),
-    ("svrg", 1, {}, lambda R, p, ns: R * ns),
-    ("saga", 1, {}, lambda R, p, ns: R * ns),
+     lambda R, p: 1 + R * p),
+    ("dsvrg", 3, {}, lambda R, p: R),
+    ("dsaga", 3, {"tau": 10, "fetch": "stale"}, lambda R, p: R * p),
+    ("dsaga", 3, {"tau": 10}, lambda R, p: R * p),
+    ("svrg", 1, {}, lambda R, p: R),
+    ("saga", 1, {}, lambda R, p: R),
 ]
 
 
 @pytest.mark.parametrize("algo,p,kw,expected", VR_SOLVES,
                          ids=[f"{a}-{kw}" for a, _, kw, _ in VR_SOLVES])
-def test_fused_solve_launches_k1_once_per_inner_step(device, algo, p, kw,
-                                                     expected):
+def test_fused_solve_launches_vr_epoch_once_per_epoch_call(device, algo, p,
+                                                           kw, expected):
     """Every VR algorithm through ``repro_torch.solve`` on the card, fused
-    and unfused on the same seed: K1's launch count and the agreement."""
+    and unfused on the same seed: vr_epoch's launch count, K1's zero, and
+    the agreement."""
     import repro_torch
     from repro_torch.config import ConvexConfig
     cfg = ConvexConfig(problem="logistic", n=40, d=24, workers=p)
     R = 3
     runs = {}
     for fused in (True, False):
-        before = vr_kernel.launches
+        before = (vr_kernel.launches, vr_epoch.launches)
         runs[fused] = repro_torch.solve(repro_torch.RunSpec(
             algo, p=p, rounds=R, fused=fused, **kw), cfg)
-        assert vr_kernel.launches - before == runs[fused].launches[
-            "vr_update"]
-    assert runs[True].launches["vr_update"] == expected(R, p, 40)
-    assert runs[False].launches["vr_update"] == 0
+        assert runs[fused].launches == {
+            "vr_update": vr_kernel.launches - before[0],
+            "vr_epoch": vr_epoch.launches - before[1]}
+    assert runs[True].launches == {"vr_update": 0,
+                                   "vr_epoch": expected(R, p)}
+    assert runs[False].launches == {"vr_update": 0, "vr_epoch": 0}
     assert runs[True].device == torch.cuda.get_device_name(device)
     assert np.abs(runs[True].x - runs[False].x).max() <= 1e-10
     assert np.abs(runs[True].rels - runs[False].rels).max() <= 1e-10
     assert np.isfinite(runs[True].rels).all()
+
+
+def _epoch_inputs(device, p, n, d, T, repeats, kind="logistic", seed=0,
+                  offset=0):
+    """A (p, n, d) rows of norm ~1 (``offset``: A starts that many float64
+    elements into its buffer), labels, visit orders (permutations cut to T,
+    or uniform draws that repeat indices), x, table, gbar."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    f64 = dict(device=device, dtype=torch.float64)
+    A = (torch.randn(p * n * d + offset, generator=g, **f64)
+         / d ** 0.5)[offset:].view(p, n, d)
+    b = (torch.randint(0, 2, (p, n), generator=g, device=device) * 2 - 1.0
+         if kind == "logistic" else torch.randn(p, n, generator=g, **f64))
+    if repeats:
+        orders = torch.randint(0, n, (p, T), generator=g, device=device)
+    else:
+        orders = torch.stack([torch.randperm(n, generator=g, device=device)
+                              for _ in range(p)])[:, :T].contiguous()
+    x = 0.1 * torch.randn(p, d, generator=g, **f64)
+    table = 0.3 * torch.randn(p, n, generator=g, **f64)
+    gbar = 0.01 * torch.randn(p, d, generator=g, **f64)
+    return A, b.to(torch.float64), orders, x, table, gbar
+
+
+def _epoch_against_plain(inputs, **kw):
+    """One vr_epoch launch against its plain version on the same CUDA
+    inputs: every output within 1e-10 of its largest magnitude."""
+    before = (vr_kernel.launches, vr_epoch.launches)
+    have = vr_epoch.vr_epoch(*inputs, **kw)
+    torch.cuda.synchronize()
+    assert (vr_kernel.launches, vr_epoch.launches) == (before[0],
+                                                       before[1] + 1)
+    want = vr_ref.vr_epoch_ref(*inputs, **kw)
+    for name, h, w in zip(("x", "table", "gbar", "acc"), have, want):
+        if w is None:
+            assert h is None
+            continue
+        assert torch.isfinite(h).all(), name
+        err = (h - w).abs().max().item()
+        assert err <= 1e-10 * w.abs().max().item(), (name, err)
+
+
+# (p, n, d, T, repeats): the paths' shapes with T cut for the plain loop,
+# a dense repeat (n 5: indices recur one and two steps apart), odd d, d
+# at the on-chip capacity (512 threads of 8 coordinates) and a d above it
+# (state in global memory)
+EPOCH_SHAPES = [(8, 600, 1000, 300, False), (1, 800, 90, 400, True),
+                (1, 300, 20, 400, True), (1, 5, 20, 200, True),
+                (2, 200, 999, 200, True), (1, 40, 4096, 40, True),
+                (1, 50, 20000, 60, True)]
+
+
+@pytest.mark.parametrize("shape", EPOCH_SHAPES, ids=str)
+@pytest.mark.parametrize("lane", ["centralvr", "saga", "svrg"])
+def test_vr_epoch_kernel_matches_plain(device, lane, shape):
+    p, n, d, T, repeats = shape
+    _epoch_against_plain(
+        _epoch_inputs(device, p, n, d, T, repeats), lane=lane,
+        kind="logistic", eta=0.05, decay=2e-4, m=n * p,
+        prox=proxops.parse("l1:0.001") if d % 2 else None)
+
+
+@pytest.mark.parametrize("prox", [None, "l1:0.05", "elasticnet:0.05:0.3",
+                                  "box:-0.2:0.3"], ids=str)
+@pytest.mark.parametrize("kind", ["logistic", "ridge", "huber@0.5",
+                                  "pseudo_huber"])
+def test_vr_epoch_kernel_losses_and_proxes_match_plain(device, kind, prox):
+    _epoch_against_plain(
+        _epoch_inputs(device, 2, 300, 90, 300, True, kind=kind, seed=1),
+        lane="saga", kind=kind, eta=0.05, decay=2e-4, m=600,
+        prox=proxops.parse(prox) if prox else None)
+
+
+def test_vr_epoch_kernel_reads_misaligned_rows(device):
+    """A one float64 into its buffer: rows 8-byte but not 16-byte aligned,
+    which the kernel's 8-byte cp.async copies take as they are."""
+    inputs = _epoch_inputs(device, 2, 300, 1000, 200, True, offset=1)
+    assert inputs[0].data_ptr() % 16 == 8
+    _epoch_against_plain(inputs, lane="centralvr", kind="logistic",
+                         eta=0.05, decay=2e-4, m=600)
+
+
+def test_fused_solve_raises_when_vr_epoch_does_not_build(device,
+                                                         monkeypatch,
+                                                         tmp_path):
+    """fused=True on the card launches vr_epoch or raises: a failed build
+    is an error, never a fall back to the plain version or to K1."""
+    import repro_torch
+    from repro_torch.config import ConvexConfig
+    from repro_torch.kernels import build
+
+    bad = tmp_path / "vr_epoch_broken.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(vr_epoch, "SOURCE", bad)
+    monkeypatch.setattr(vr_epoch, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    before = (vr_kernel.launches, vr_epoch.launches)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        repro_torch.solve(repro_torch.RunSpec("saga", rounds=1, fused=True),
+                          ConvexConfig(problem="logistic", n=40, d=24))
+    assert (vr_kernel.launches, vr_epoch.launches) == before
 
 
 # ---------------------------------------------------------------------------

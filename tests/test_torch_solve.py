@@ -74,7 +74,8 @@ def test_centralvr_matches_reference(sampling, fused, prox):
     _close(have.state.table, want.state.table)
     _close(have.state.gbar, want.state.gbar)
     np.testing.assert_array_equal(have.grad_evals, want.grad_evals)
-    assert have.launches == {"vr_update": 0} and have.device == "cpu"
+    assert have.launches == {"vr_update": 0, "vr_epoch": 0}
+    assert have.device == "cpu"
 
 
 @pytest.mark.parametrize("prox", [None, "l1:0.01"])
@@ -248,7 +249,8 @@ def test_own_data_and_orders_from_the_seed():
     _close(f.rels, a.rels)
     row = json.loads(json.dumps(a.provenance()))
     assert row["spec"]["eta"] == a.spec.eta > 0
-    assert row["device"] == "cpu" and row["launches"] == {"vr_update": 0}
+    assert row["device"] == "cpu"
+    assert row["launches"] == {"vr_update": 0, "vr_epoch": 0}
 
 
 def test_explicit_orders_are_shape_checked():
