@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
   1. device: name, compute capability (must be 9.0), name and power limit
      as nvidia-smi reports them;
   2. build: compiles the hand-written CUDA kernels ``vr_update`` (K1),
-     ``vr_epoch`` (K1's epoch route for the convex paths), ``rmsnorm``
+     ``vr_epoch`` (K1's epoch route for the convex paths), ``lazy_epoch``
+     (the sparse driver's epoch), ``rmsnorm``
      (K2), ``flash_attention`` (K3) and ``ssd_scan`` (K4) from the
      checkout's sources, one nvcc each, all started together
      (sm_90a), timed; prints each kernel's ptxas registers and spills, the
@@ -74,6 +75,27 @@ Phases, each of which raises on failure:
      fused and unfused within 1e-9; every rel finite, the last below the
      first for each VR algorithm. Prints each run's rels, gradient
      evaluations per round, inner steps/s and launches;
+  5b. the sparse lazy driver (``sampling="sparse"``): (a) ``lazy_epoch``
+     against its plain version, one epoch per case, every output within
+     1e-10 of its largest magnitude: vr on and off x logistic and ridge
+     x prox none and l1 at (n 48, d 40, width 3), width 1, widths 300
+     and 1024 (more entries than a block's threads), zero absorbing,
+     drifts of ~1e-300 and ~1e-12 (a step count above 2**31), and the
+     README's shape (n 4096, d 16384, width 32); (b) the README's sparse
+     example through ``solve`` (20 rounds, ``l1:0.001``, whose answer is
+     x = 0 at this scale, and ``l1:1e-6``) against the dense fused route
+     on the same draws: x within 1e-10, rels within 1e-10 relative,
+     lazy_epoch launched rounds + 1 times and nothing else, vr_epoch
+     rounds + 1 on the dense run; (c) the same on a uniform-74 stand-in
+     for LIBSVM's rcv1.binary: its n 20,242 and d 47,236, and exactly 74
+     nonzeros in every row, its mean (the real rows' lengths vary, and
+     the longest set the kernel's width), drawn, 3 rounds, ``l1:1e-5``
+     and ``l1:1e-7``; and ``[time]`` lines: lazy_epoch per epoch and per
+     step at both shapes beside its bound and the bytes its steps touch,
+     its plain version's time, and the dense route's vr_epoch per step
+     on the stand-in; then
+     one fused Algorithm 1 run with ``track_iterates`` (toy-logistic, 2
+     epochs, 3 vr_epoch launches) against the unfused one at 1e-9;
   6. LM main path: CentralVR training of the Qwen2-7B-width model cut to
      2 layers (1,556,113,920 parameters, float32 masters, bfloat16
      compute) through ``train.step.make_epoch_runner(fused=True)`` at
@@ -99,7 +121,8 @@ Phases, each of which raises on failure:
      the LM shapes and for vr_epoch), its bound on this card, the time of
      the one PyTorch call that computes the same function where there is
      one (``F.rms_norm``, ``F.scaled_dot_product_attention``; timed as a
-     yardstick only; none for K1, vr_epoch and K4) and its largest error
+     yardstick only; none for K1, vr_epoch, lazy_epoch and K4) and its
+     largest error
      against the plain version; K1 at the LM step's (1, 1,556,113,920)
      float32, also at the reduced shape and Mamba2-130M's (2,
      128,983,488), K2 also at 8192 x 768 and K3 also in float32 and at
@@ -611,7 +634,8 @@ def drive(torch, solve, spec_kw, cfg, orders, kernels, label, *, launches,
     want = dict.fromkeys(kernels, 0)
     want["vr_epoch"] = launches
     if counts != want or first.launches != {"vr_update": 0,
-                                            "vr_epoch": launches}:
+                                            "vr_epoch": launches,
+                                            "lazy_epoch": 0}:
         raise AssertionError(f"{label}: launched {counts} (solve counted "
                              f"{first.launches}), expected {want}: one "
                              f"vr_epoch per fused epoch call, nothing else")
@@ -762,6 +786,326 @@ def phase_family(torch, kernels):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5b: the sparse lazy driver on lazy_epoch
+# ---------------------------------------------------------------------------
+
+LAZY_TOL = 1e-10                # lazy_epoch: of the output's largest magnitude
+SPARSE_ROUNDS = 20              # the README's sparse example
+# a uniform stand-in for LIBSVM rcv1.binary: its n and d, and its mean
+# nonzeros a row in every row
+RCV1 = (20242, 47236, 74)
+RCV1_ROUNDS = 3
+
+
+def phase_compare_lazy(torch, lazy_kernel, lazy_ref):
+    """lazy_epoch against its plain version on the card, one epoch per case
+    (``kernels/lazy_epoch/cases.py``, the card tests' cases too): every
+    output within LAZY_TOL of its largest magnitude. Returns the largest
+    absolute and relative errors and the plain version's time over the
+    README-shape epoch."""
+    from repro_torch.kernels.lazy_epoch import cases
+
+    worst_abs = worst_rel = 0.0
+    plain_ms = None
+    t0 = time.perf_counter()
+    for case in cases.CASES:
+        label, (n, d, w) = case.label, case.shape
+        args, kw = cases.inputs(case, "cuda")
+        have = lazy_kernel.lazy_epoch(*args, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = lazy_ref.lazy_epoch_ref(*args, **kw)
+        torch.cuda.synchronize()
+        if label == "README shape":
+            plain_ms = (time.perf_counter() - t1) * 1e3
+        errs = []
+        for name, h, wt in zip(("z", "table", "acc"), have, want):
+            err = (h - wt).abs().max().item()
+            scale = wt.abs().max().item()
+            if not (bool(torch.isfinite(h).all())
+                    and err <= LAZY_TOL * scale):
+                raise AssertionError(
+                    f"lazy_epoch {label} ({n}, {d}, {w}): {name} max abs "
+                    f"err {err} > {LAZY_TOL} of {scale}")
+            worst_abs = max(worst_abs, err)
+            worst_rel = max(worst_rel, err / scale if scale else 0.0)
+            errs.append(f"{name} {err:.3e}")
+        zeros = int((have[0] == 0).sum())
+        plan = lazy_kernel.launch_plan(w)
+        log(f"[compare] lazy_epoch {label} (n {n}, d {d}, width {w}): "
+            f"{plan.threads} threads of {plan.entries} entries; {zeros} "
+            f"zeros in z; max abs err {', '.join(errs)}")
+    log(f"[compare] lazy_epoch vs plain version: {len(cases.CASES)} cases "
+        f"in {time.perf_counter() - t0:.1f} s, max abs err {worst_abs!r}, "
+        f"largest error over its output's largest magnitude {worst_rel!r} "
+        f"(tolerance {LAZY_TOL}); plain version over the README-shape "
+        f"epoch {plain_ms!r} ms")
+    return worst_abs, worst_rel, plain_ms
+
+
+def sparse_pair(torch, kernels, label, prob, rounds, prox):
+    """The sparse route and the dense fused route through ``solve`` on the
+    same draws (the main path: every count set to 0 just before each run,
+    read just after). Gates: lazy_epoch launched rounds + 1 times on the
+    sparse run and nothing else; vr_epoch rounds + 1 on the dense run;
+    final x within 1e-10 absolute and rels within 1e-10 relative; rels
+    finite, and falling unless the answer is x = 0 from the start (then
+    every rel is 0: an l1 weight above |grad f(0)|_inf, whose value is
+    printed). Returns the record."""
+    import numpy as np
+
+    from repro_torch import RunSpec, solve
+    from repro_torch.core import centralvr, convex
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    orders = centralvr.draw_orders(gen, prob.n, rounds)
+    runs, counts, walls = {}, {}, {}
+    for route, kw in (("sparse", dict(sampling="sparse")),
+                      ("dense", dict(fused=True))):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        runs[route] = solve(RunSpec("centralvr", rounds=rounds, prox=prox,
+                                    **kw), prob, orders=orders)
+        torch.cuda.synchronize()
+        walls[route] = time.perf_counter() - t0
+        counts[route] = read_counts(kernels)
+    for route, name in (("sparse", "lazy_epoch"), ("dense", "vr_epoch")):
+        want = dict.fromkeys(kernels, 0)
+        want[name] = rounds + 1
+        solve_want = {k: want[k] for k in ("vr_update", "vr_epoch",
+                                           "lazy_epoch")}
+        if counts[route] != want or runs[route].launches != solve_want:
+            raise AssertionError(
+                f"{label} {route}: launched {counts[route]} (solve counted "
+                f"{runs[route].launches}), expected {want}")
+    sp, dn = runs["sparse"], runs["dense"]
+    dx = float(np.abs(sp.x - dn.x).max())
+    drel = float(max(abs(a - b) / abs(b) if b else abs(a)
+                     for a, b in zip(sp.rels, dn.rels)))
+    g0_inf = float(convex.full_grad(prob, torch.zeros_like(prob.A[0]))
+                   .abs().max())
+    log(f"[path] {label}: sparse rels {[float(r) for r in sp.rels]}")
+    log(f"[path] {label}: dense fused rels {[float(r) for r in dn.rels]}")
+    log(f"[path] {label}: sparse wall {walls['sparse']:.3f} s, dense fused "
+        f"wall {walls['dense']:.3f} s; lazy_epoch launches "
+        f"{counts['sparse']['lazy_epoch']}, vr_epoch "
+        f"{counts['dense']['vr_epoch']}; max |x_sparse - x_dense| {dx!r}, "
+        f"max relative rel difference {drel!r}; eta {sp.spec.eta!r}; "
+        f"{int((sp.x == 0).sum())} of {sp.x.size} coordinates zero; "
+        f"|grad f(0)|_inf {g0_inf!r}")
+    trivial = not sp.rels.any() and not sp.x.any()
+    if not (np.isfinite(sp.rels).all()
+            and (trivial or sp.rels[-1] < sp.rels[0])):
+        raise AssertionError(f"{label}: sparse rels {sp.rels}")
+    if not (dx <= 1e-10 and drel <= 1e-10):
+        raise AssertionError(f"{label}: sparse and dense differ: x {dx}, "
+                             f"rels {drel} (relative)")
+    return dict(label=label, prox=prox, zero_answer=trivial,
+                grad0_inf=g0_inf, launches=counts["sparse"]["lazy_epoch"],
+                dense_vr_epoch_launches=counts["dense"]["vr_epoch"],
+                sparse_wall_s=walls["sparse"], dense_wall_s=walls["dense"],
+                max_diff_x=dx, max_rel_diff_rels=drel,
+                rels=[float(r) for r in sp.rels])
+
+
+def lazy_bound(n, d, width, T):
+    """The least time of one lazy epoch at the card's peak rates: each
+    input read once and each output written once (the visited rows'
+    int32 coordinates and float64 values, labels, the orders, z, the
+    table and gbar in; z, the table and acc out), against the card's
+    bytes/s; operations (~30 float64 a row entry a step: the catch-up's
+    rounds, the dot, the update) are far below. Returns (bound ms, bytes
+    or operations, bytes, the bytes the steps touch: every row entry's z,
+    last, acc and gbar read and z, last, acc written, the table entry read
+    and written, and the passes over d at each end)."""
+    nbytes = T * width * 12 + n * 8 + T * 8 + 2 * n * 8 + 4 * d * 8
+    ops = T * (30 * width + 10)
+    touched = (T * width * (12 + 8 + 4 + 8 + 8 + 8 + 4 + 8) + T * (16 + 16)
+               + d * (8 + 8 + 4 + 8 + 8 + 4 + 8 + 8) + 2 * n * 8)
+    bytes_s = nbytes / PEAK_BYTES_S
+    ops_s = ops / PEAK_FLOPS["float64"]
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes, touched)
+
+
+def time_lazy_epoch(torch, lazy_kernel, lazy_ref, label, prob, *, prox_l1,
+                    plain_ms=None, plain_steps=None):
+    """lazy_epoch at one problem's shape: device time per epoch (CUDA
+    events over back-to-back VR epochs on buffers it owns), per step, its
+    bound; the plain version's time (given, over a whole epoch; else
+    measured here over its first ``plain_steps`` steps)."""
+    from repro_torch.prox import lazy
+
+    sp = lazy.sparsify(prob)
+    n, d, w = sp.n, sp.d, sp.width
+    g = torch.Generator(device="cuda").manual_seed(7)
+    f64 = dict(device="cuda", dtype=torch.float64)
+    z = 0.01 * torch.randn(d, generator=g, **f64)
+    table = 0.1 * torch.randn(n, generator=g, **f64)
+    gbar = 1e-3 * torch.randn(d, generator=g, **f64)
+    perm = torch.randperm(n, generator=g, device="cuda")
+    eta = 0.05
+    kw = dict(eta=eta, c=eta * prox_l1, vr=True)
+    outs = (torch.empty_like(z), torch.empty_like(table), torch.empty_like(z),
+            torch.empty(d, dtype=torch.int32, device="cuda"))
+    args = (sp.idx, sp.val, sp.b, sp.kind, z, table, gbar, perm)
+    ms = event_ms(torch, lambda: lazy_kernel._launch(*args, *outs, **kw),
+                  calls=5)
+    if plain_ms is None:
+        cut = perm[:plain_steps].contiguous()
+        lazy_ref.lazy_epoch_ref(*args[:-1], cut[:20], **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lazy_ref.lazy_epoch_ref(*args[:-1], cut, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    else:
+        plain_steps = n
+    bound_ms, bound_by, nbytes, touched = lazy_bound(n, d, w, n)
+    plan = lazy_kernel.launch_plan(w)
+    rec = dict(label=label, shape=[n, d, w], T=n, dtype="float64", ms=ms,
+               per_step_ms=ms / n, plain_ms=plain_ms,
+               plain_steps=plain_steps,
+               plain_per_step_ms=plain_ms / plain_steps, bound_ms=bound_ms,
+               bound_by=bound_by, bytes=nbytes, touched_bytes=touched,
+               touched_ms=touched / PEAK_BYTES_S * 1e3,
+               bound_share=bound_ms / ms, threads=plan.threads,
+               entries=plan.entries, library_ms=None)
+    log(f"[time] lazy_epoch {label} (n {n}, d {d}, width {w}): {ms!r} ms an "
+        f"epoch, {ms / n * 1e3!r} us a step (CUDA events); plain "
+        f"{plain_ms!r} ms over {plain_steps} steps "
+        f"({plain_ms / plain_steps * 1e3!r} us a step); bound {bound_ms!r} "
+        f"ms ({bound_by}, {nbytes} bytes read or written once), "
+        f"{rec['bound_share']!r} of it; the steps touch {touched} bytes "
+        f"({rec['touched_ms']!r} ms at the card's rate); {plan.threads} "
+        f"threads of {plan.entries} entries")
+    return rec
+
+
+def dense_epoch_ms(torch, vr_epoch, prob, epochs=RCV1_ROUNDS):
+    """The dense fused route's vr_epoch on a problem: CUDA events over
+    ``epochs`` back-to-back epoch launches (T = n) at (1, n, d), the state
+    in global memory above d 4096."""
+    n, d = prob.A.shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    f64 = dict(device="cuda", dtype=torch.float64)
+    A, b = prob.A[None], prob.b[None]
+    orders = torch.randperm(n, generator=g, device="cuda")[None]
+    x = 0.01 * torch.randn(1, d, generator=g, **f64)
+    table = torch.zeros(1, n, **f64)
+    gbar = 1e-3 * torch.randn(1, d, generator=g, **f64)
+    acc = torch.empty_like(x)
+    kw = dict(lane="centralvr", kind=prob.kind, eta=0.05, decay=0.0, m=n,
+              prox=None)
+    ms = event_ms(torch, lambda: vr_epoch._launch(A, b, orders, x, table,
+                                                  gbar, acc, **kw),
+                  calls=epochs)
+    plan = vr_epoch.launch_plan(1, d)
+    log(f"[time] vr_epoch dense route on the same problem (1, n {n}, d {d},"
+        f" T {n}): {ms!r} ms an epoch, {ms / n * 1e3!r} us a step (CUDA "
+        f"events, {epochs} epochs); {plan.threads} threads, coords "
+        f"{plan.coords} (0: the state in global memory)")
+    return dict(ms=ms, per_step_ms=ms / n, epochs=epochs)
+
+
+def phase_track(torch, kernels):
+    """track_iterates on the fused route: Algorithm 1 on toy-logistic, 2
+    epochs from the fused init, each tracked epoch one vr_epoch launch
+    (3 in all) storing the iterates before each step; held against the
+    unfused tracked epochs on the same draws at 1e-9."""
+    from repro_torch.configs.paper_convex import PRESETS
+    from repro_torch.core import centralvr, convex
+    from repro_torch.core import fused as fusedmod
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cfg = PRESETS["toy-logistic"]
+    prob = convex.make_problem(gen, cfg)
+    eta = convex.auto_eta(prob)
+    init, per = centralvr.draw_orders(gen, prob.n, 2)
+    out = {}
+    for fused in (True, False):
+        fp = fusedmod.make_params(fused, eta, prob.lam, prob.A.device)
+        reset_counts(kernels)
+        st = centralvr.init_state(prob, eta, init, fused=fp)
+        trajs = []
+        for order in per:
+            st, traj = centralvr.epoch(prob, st, eta, order,
+                                       track_iterates=True, fused=fp)
+            trajs.append(traj)
+        torch.cuda.synchronize()
+        out[fused] = (st, torch.stack(trajs), read_counts(kernels))
+    (sf, tf, cf), (su, tu, cu) = out[True], out[False]
+    want = dict.fromkeys(kernels, 0)
+    want["vr_epoch"] = 3
+    diff = max(float((tf - tu).abs().max()), float((sf.x - su.x).abs().max()))
+    log(f"[path] track_iterates fused (toy-logistic, 2 epochs): trajectory "
+        f"{tuple(tf.shape)}, launches {cf} (unfused {cu}), max |fused - "
+        f"unfused| {diff!r}")
+    if cf != want or any(cu.values()):
+        raise AssertionError(f"track_iterates: launches fused {cf}, unfused "
+                             f"{cu}; expected {want} and none")
+    if not diff <= 1e-9:
+        raise AssertionError(f"track_iterates: fused and unfused differ by "
+                             f"{diff}")
+    return dict(launches=cf["vr_epoch"], max_diff=diff)
+
+
+def phase_sparse(torch, kernels):
+    """Phase 5b: lazy_epoch against its plain version (a), the README's
+    sparse example and the uniform-74 stand-in for rcv1.binary through
+    ``solve`` against the dense fused route (b, c), lazy_epoch and
+    vr_epoch timed at both, and the fused tracked epoch."""
+    import gc
+
+    from repro_torch.kernels.lazy_epoch import ref as lazy_ref
+    from repro_torch.prox import lazy
+
+    lazy_kernel = kernels["lazy_epoch"]
+    t0 = time.perf_counter()
+    err_abs, err_rel, readme_plain_ms = phase_compare_lazy(torch, lazy_kernel,
+                                                           lazy_ref)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    readme = lazy.make_sparse_data(gen, 4096, 16384, 32)
+    # the README's l1 weight is above |grad f(0)|_inf at this scale, so its
+    # answer is x = 0; a weight below it gives a real trajectory
+    runs = [sparse_pair(torch, kernels, f"README sparse example (4096 x "
+                        f"16384, 32 a row, {prox})", readme, SPARSE_ROUNDS,
+                        prox) for prox in ("l1:0.001", "l1:1e-6")]
+    times = [time_lazy_epoch(torch, lazy_kernel, lazy_ref, "README shape",
+                             readme, prox_l1=0.001,
+                             plain_ms=readme_plain_ms)]
+    del readme
+    n, d, nnz = RCV1
+    torch.cuda.reset_peak_memory_stats()
+    rcv1 = lazy.make_sparse_data(gen, n, d, nnz)
+    peak = torch.cuda.max_memory_allocated()
+    runs += [sparse_pair(torch, kernels, f"uniform-74 stand-in for "
+                         f"rcv1.binary ({n} x {d}, {nnz} in every row, "
+                         f"{prox})", rcv1, RCV1_ROUNDS, prox)
+             for prox in ("l1:1e-5", "l1:1e-7")]
+    times.append(time_lazy_epoch(torch, lazy_kernel, lazy_ref,
+                                 "uniform-74 stand-in", rcv1, prox_l1=1e-5,
+                                 plain_steps=2000))
+    dense = dense_epoch_ms(torch, kernels["vr_epoch"], rcv1)
+    times[-1]["dense_vr_epoch"] = dense
+    log(f"[time] uniform-74 stand-in: lazy_epoch "
+        f"{times[-1]['per_step_ms'] * 1e3!r} "
+        f"us a step against the dense route's vr_epoch "
+        f"{dense['per_step_ms'] * 1e3!r} us a step "
+        f"({dense['ms'] / times[-1]['ms']!r}x an epoch); peak memory of the "
+        f"draw {peak / 1e9:.2f} GB")
+    del rcv1
+    lazy._PACK_CACHE.clear()        # it holds the problems' dense A
+    gc.collect()
+    torch.cuda.empty_cache()
+    track = phase_track(torch, kernels)
+    log(f"[path] phase 5b (sparse) in {time.perf_counter() - t0:.1f} s")
+    return dict(max_abs_err=err_abs, max_rel_err=err_rel, runs=runs,
+                times=times, track=track)
+
+
 def lm_run(torch, cfg, tcfg, W, fused, kernels, sample):
     """One LM run through the entry points a user calls: build the epoch
     runner and the state (seeded), then drive LM_EPOCHS epochs with every
@@ -886,11 +1230,12 @@ def expected_launches(cfg, A, W):
     (L layers, A microbatches, W workers): the forward and the block's
     recompute each launch K2 for every block norm (two per attn block, one
     per ssm block) and K3 or K4 once per block, plus K2 once for the final
-    norm; K1 once; vr_epoch (the convex paths' route) never."""
+    norm; K1 once; vr_epoch and lazy_epoch (the convex paths' kernels)
+    never."""
     L = cfg.num_layers
     ssm = cfg.family == "ssm"
     norms = 1 if ssm else 2
-    return {"vr_update": 1, "vr_epoch": 0,
+    return {"vr_update": 1, "vr_epoch": 0, "lazy_epoch": 0,
             "rmsnorm": (2 * norms * L + 1) * A * W,
             "flash_attention": 0 if ssm else 2 * L * A * W,
             "ssd_scan": 2 * L * A * W if ssm else 0}
@@ -1429,6 +1774,7 @@ def main():
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -1440,8 +1786,8 @@ def main():
     from repro_torch.prox import operators as proxops
 
     kernels = {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
-               "rmsnorm": rms_kernel, "flash_attention": fa_kernel,
-               "ssd_scan": ssd_kernel}
+               "lazy_epoch": lazy_kernel, "rmsnorm": rms_kernel,
+               "flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build(kernels)
@@ -1461,6 +1807,7 @@ def main():
                                 timed=False)
     paths = phase_main_path(torch, kernels)
     paths += phase_family(torch, kernels)
+    sparse = phase_sparse(torch, kernels)
     lm = phase_lm(torch, kernels)
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
@@ -1484,6 +1831,7 @@ def main():
                              fused=fused)
     total = dict.fromkeys(kernels, 0)
     total["vr_epoch"] = sum(p["launches"] for p in paths)
+    total["lazy_epoch"] = sum(r["launches"] for r in sparse["runs"])
     for run in lm:
         for name, n in run["counts"].items():
             total[name] += n
@@ -1525,6 +1873,18 @@ def main():
                                      "unfused_wall_s", "peak_bytes",
                                      "max_diff")}
                   for p in paths]}, {
+        "name": "lazy_epoch", "route": "cuda",
+        "source": "src/repro_torch/kernels/lazy_epoch/csrc/lazy_epoch.cu",
+        "replaces": "src/repro/prox/lazy.py:215 (the jitted scan "
+                    "_lazy_epoch; no Pallas kernel)",
+        "launches": total["lazy_epoch"], "max_abs_err": sparse["max_abs_err"],
+        "max_rel_err": sparse["max_rel_err"],
+        **{k: sparse["times"][0][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "T", "dtype", "per_step_ms", "plain_per_step_ms", "bytes",
+            "touched_bytes", "bound_share", "threads", "entries")},
+        "other_shapes": sparse["times"][1:], "paths": sparse["runs"],
+        "track_iterates": sparse["track"]}, {
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:21",

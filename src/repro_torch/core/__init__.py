@@ -11,4 +11,9 @@ Modules:
   fused        -- the VR inner loops, each one launch of the hand-written
                   vr_epoch kernel
   solver       -- RunSpec / solve / RunResult
+  host_loop    -- per-round host drivers of Algorithms 1-5 (a pinning
+                  oracle)
+  theory       -- Theorem 1 constants
 """
+from repro_torch.core import (baselines, centralvr, convex,  # noqa: F401
+                              distributed, host_loop, runtime, theory)

@@ -162,6 +162,12 @@ def scalar_residual_all(prob: Problem, x: torch.Tensor) -> torch.Tensor:
     return _pointwise_residual(prob.A @ x, prob.b, prob.kind)
 
 
+def sample_grad(prob: Problem, x: torch.Tensor, i) -> torch.Tensor:
+    """grad f_i(x) (single index), regularizer included."""
+    s = scalar_residual(prob, x, i)
+    return s * prob.A[i] + 2.0 * prob.lam * x
+
+
 def data_grad_from_scalars(prob: Problem, s: torch.Tensor) -> torch.Tensor:
     """(1/n) sum_j s_j a_j — the data term of the mean gradient."""
     return prob.A.T @ s / prob.n
@@ -195,6 +201,47 @@ def auto_eta(prob: Problem, c: float = 0.3) -> float:
     """Practical step size c/L."""
     _, L = constants(prob)
     return float(c / L)
+
+
+def solve_exact(prob: Problem, iters: int = 100) -> torch.Tensor:
+    """x*: closed form for ridge, ``iters`` Newton steps for logistic,
+    ``max(iters, 400)`` IRLS steps for Huber and pseudo-Huber (d is
+    small; each step one ``torch.linalg.solve`` of a d x d system).
+
+    IRLS uses the majorization weights w = l'(r)/r (min(1, delta/|r|) for
+    Huber): each step solves the weighted normal equations exactly and
+    decreases the objective, where raw Newton on Huber can cycle between
+    active sets. The fixed point satisfies A^T l'(r)/n + 2*lam*x = 0, the
+    stationary point of :func:`full_loss`.
+    """
+    A, b = prob.A, prob.b
+    n, d = A.shape
+    eye = torch.eye(d, dtype=A.dtype, device=A.device)
+    base, delta = loss_params(prob.kind)
+    if base == "ridge":
+        H = 2.0 * (A.T @ A) / n + 2.0 * prob.lam * eye
+        g = 2.0 * (A.T @ b) / n
+        return torch.linalg.solve(H, g)
+    x = torch.zeros(d, dtype=A.dtype, device=A.device)
+    if base in ("huber", "pseudo_huber"):
+        for _ in range(max(iters, 400)):
+            r = A @ x - b
+            if base == "huber":
+                w = torch.clamp(delta / torch.clamp(r.abs(), min=1e-300),
+                                max=1.0)
+            else:
+                w = 1.0 / torch.sqrt(1.0 + (r / delta) ** 2)
+            Aw = A * w[:, None]
+            H = Aw.T @ A / n + 2.0 * prob.lam * eye
+            x = torch.linalg.solve(H, Aw.T @ b / n)
+        return x
+    for _ in range(iters):
+        p = torch.sigmoid(-b * (A @ x))
+        g = A.T @ (-b * p) / n + 2.0 * prob.lam * x
+        w = p * (1.0 - p)
+        H = (A * w[:, None]).T @ A / n + 2.0 * prob.lam * eye
+        x = x - torch.linalg.solve(H, g)
+    return x
 
 
 def rel_grad_norm(prob: Problem, x: torch.Tensor, g0=None, *, prox=None,

@@ -96,7 +96,7 @@ def make_distributed(gen: torch.Generator, cfg) -> ShardedProblem:
 # ---------------------------------------------------------------------------
 
 def _local_centralvr_epoch(A, b, lam, kind, x, table, gbar, eta, orders,
-                           fused=None, prox=None):
+                           fused=None, prox=None, track=False):
     """One CentralVR epoch on every worker's shard (Alg 2 lines 6-12):
     ``A`` (p, ns, d), ``b`` and ``table`` (p, ns), ``x`` (p, d), ``gbar``
     (p, d) or (d,), ``orders`` (p, T).
@@ -106,16 +106,21 @@ def _local_centralvr_epoch(A, b, lam, kind, x, table, gbar, eta, orders,
     unfused body. ``prox`` is applied per local step,
     ``x <- prox_{eta*g}(x - eta*v)``; when ``fused`` is set the prox rides
     in its parameters. Returns (x, table, acc), acc = each worker's local
-    gtilde (data term)."""
+    gtilde (data term); ``track``: and the (p, T, d) iterates before each
+    step."""
     if fused is not None:
         from repro_torch.core import fused as fusedmod
         return fusedmod.centralvr_epoch(A, b, kind, x, table, gbar, orders,
-                                        fused)
+                                        fused, track=track)
     ns = A.shape[1]
     rows, labels = convex.gather_epoch(A, b, orders)
     table = table.clone()
     acc = torch.zeros_like(x)
+    traj = (x.new_empty((x.shape[0], orders.shape[1], x.shape[1]))
+            if track else None)
     for t in range(orders.shape[1]):
+        if track:
+            traj[:, t] = x
         a = rows[:, t]
         idx = orders[:, t:t + 1]
         s_new = convex._pointwise_residual(torch.linalg.vecdot(a, x),
@@ -124,7 +129,7 @@ def _local_centralvr_epoch(A, b, lam, kind, x, table, gbar, eta, orders,
         table.scatter_(1, idx, s_new)
         acc = acc + s_new * a / ns
         x = proxops.apply_prox(prox, x - eta * v, eta)
-    return x, table, acc
+    return (x, table, acc, traj) if track else (x, table, acc)
 
 
 def _local_sgd_epoch(A, b, lam, kind, x, eta, orders, prox=None,

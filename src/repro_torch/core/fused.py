@@ -60,7 +60,8 @@ def make_params(flag, eta: float, lam: float, device,
     return FusedParams(float(eta), float(lam), prox)
 
 
-def centralvr_epoch(A, b, kind, x, table, gbar, orders, fp: FusedParams):
+def centralvr_epoch(A, b, kind, x, table, gbar, orders, fp: FusedParams,
+                    *, track: bool = False):
     """Fused CentralVR epoch for p workers: ``A`` (p, n, d), ``b`` (p, n),
     ``x`` and ``gbar`` (p, d) (gbar may be (d,)), ``table`` (p, n),
     ``orders`` (p, T).
@@ -68,15 +69,17 @@ def centralvr_epoch(A, b, kind, x, table, gbar, orders, fp: FusedParams):
     The arithmetic of ``distributed._local_centralvr_epoch``'s unfused
     body as one ``vr_epoch`` launch (centralvr lane). Returns (x, table,
     acc); ``acc`` is each worker's running gtilde accumulator (data term,
-    mean over its shard). The inputs are not modified.
+    mean over its shard). ``track``: also the (p, T, d) iterates before
+    each step, stored by the same launch (the kernel's tracked
+    instantiation), as a fourth output. The inputs are not modified.
     """
     eta, lam, prox = fp
     x = x.contiguous()
-    out, table, _, acc = vr_epoch.vr_epoch_in_range(
+    out = vr_epoch.vr_epoch_in_range(
         A, b, _index(orders), x, table.contiguous(),
         gbar.expand(x.shape).contiguous(), lane="centralvr", kind=kind,
-        eta=eta, decay=2.0 * lam, m=A.shape[1], prox=prox)
-    return out, table, acc
+        eta=eta, decay=2.0 * lam, m=A.shape[1], prox=prox, track=track)
+    return (out[0], out[1], out[3]) + tuple(out[4:])
 
 
 def saga_steps(A, b, kind, x, table, gbar, n_global: int, idx,

@@ -5,8 +5,8 @@ of ``repro/core/solver.py``.
     reference's cross-field validation, so an invalid combination fails
     before any torch work with the reference's error text. A valid spec
     for a part that is not ported yet (the spmd backend, process fleets
-    and elasticity, the sparse lazy driver) raises
-    ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+    and elasticity) raises ``NotImplementedError`` naming the ROADMAP.md
+    item that ports it.
   * ``FAMILY`` — the capability record of every algorithm of the
     reference's registry (what RunSpec validates against); ``REGISTRY``
     — the same eleven algorithms with their drivers.
@@ -126,7 +126,9 @@ class RunSpec:
                     the run's draws when :func:`solve` is given none
       metric_every  keep every k-th round's rel-grad-norm (plus the final
                     round) in ``RunResult.rels``
-      sampling      "permutation" | "uniform" (Algorithm 1 only)
+      sampling      "permutation" | "uniform" | "sparse" (Algorithm 1
+                    only; "sparse" runs the lazy sparse driver,
+                    ``prox/lazy.py``, one ``lazy_epoch`` launch an epoch)
       prox          composite objective, ``"l1:0.01"`` etc.
                     (``repro_torch.prox.operators``); stored normalized
       fused         the vr_epoch kernel path: False (unfused body), True
@@ -388,10 +390,6 @@ class RunSpec:
             raise NotImplementedError(
                 "RunSpec.topology: process fleets and elasticity are not "
                 "ported to repro_torch yet (ROADMAP.md queue 1, item 11)")
-        if self.sampling == "sparse":
-            raise NotImplementedError(
-                "RunSpec.sampling: the sparse lazy driver is not ported to "
-                "repro_torch yet (ROADMAP.md queue 1, item 8)")
 
 
 # ---------------------------------------------------------------------------
@@ -405,9 +403,10 @@ class RunResult:
     ``spec`` is the *resolved* spec (eta filled in). ``wall_s`` is the
     wall clock of the driver call up to its last result on the host.
     ``launches`` counts the hand-written kernel launches the call made,
-    by kernel: ``vr_epoch`` one per fused epoch or inner loop, ``vr_update``
-    (K1's per-step route, the LM's) none (0 on the unfused body and on the
-    CPU). ``device`` names where it ran.
+    by kernel: ``vr_epoch`` one per fused epoch or inner loop,
+    ``lazy_epoch`` one per epoch of the sparse driver (the init epoch
+    included), ``vr_update`` (K1's per-step route, the LM's) none (0 on
+    the unfused body and on the CPU). ``device`` names where it ran.
     ``comms`` is the analytical bytes-per-collective model of the run
     (``obs/comms.py``) at the run's element size.
     """
@@ -502,8 +501,9 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     the three algorithms with an init epoch refuses init orders that are
     not permutations:
 
-      centralvr        (init (n,), per-epoch (R, n)): permutations, or
-                       uniform indices with ``sampling="uniform"``
+      centralvr        (init (n,), per-epoch (R, n)): permutations (also
+                       for ``sampling="sparse"``), or uniform indices
+                       with ``sampling="uniform"``
       centralvr_sync   (init (p, ns), per-round (R, p, ns)) permutations
       centralvr_async  (init (p, ns), per-event (R*p, ns)) permutations,
                        event rows in schedule order
@@ -523,6 +523,7 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     """
     from repro_torch.core import convex, distributed
     from repro_torch.kernels import resolve_device
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
     from repro_torch.kernels.vr_update import epoch as vr_epoch
     from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.obs import comms as obs_comms
@@ -537,13 +538,14 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
                   else problem)
         eta = convex.auto_eta(merged)
 
-    launches0 = (vr_kernel.launches, vr_epoch.launches)
+    counters = {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
+                "lazy_epoch": lazy_kernel}
+    launches0 = {k: m.launches for k, m in counters.items()}
     t0 = time.perf_counter()
     state, x, rels, grad_evals = entry.call(spec, problem, eta, orders)
     rels = rels.cpu().numpy()
     wall = time.perf_counter() - t0
-    launches = {"vr_update": vr_kernel.launches - launches0[0],
-                "vr_epoch": vr_epoch.launches - launches0[1]}
+    launches = {k: m.launches - launches0[k] for k, m in counters.items()}
 
     if spec.metric_every > 1 and rels.size:
         idx = np.arange(spec.metric_every - 1, rels.size, spec.metric_every)

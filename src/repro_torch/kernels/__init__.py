@@ -11,8 +11,11 @@ version (``ref.py``), which the wrapper runs for tensors on the CPU:
                     ``repro/kernels/flash_attention/kernel.py``
   ssd_scan/         K4, Mamba2 SSD chunk scan, forward; replaces
                     ``repro/kernels/ssd_scan/kernel.py``
+  lazy_epoch/       one lazy sparse CentralVR epoch (``prox/lazy.py``);
+                    replaces no Pallas kernel: the counterpart of the
+                    reference's jitted scan ``_lazy_epoch``
 
-All four are CUDA C++ for sm_90a, built by ``build.py``. As in the
+All five are CUDA C++ for sm_90a, built by ``build.py``. As in the
 reference, ``ssd_scan`` (the model-layout entry) is exported here lazily.
 ``resolve_fused()`` is the one place that turns a ``fused=`` flag into a
 decision, so every caller agrees on the dispatch, and

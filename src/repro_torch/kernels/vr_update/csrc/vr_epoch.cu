@@ -63,6 +63,10 @@
 //   the writes), so a lane's entry is always the latest. Thread 0 writes
 //   the table itself.
 // * The lane is a template parameter: saga and svrg keep no acc.
+// * TRACK (a template parameter, centralvr lane only) also stores the
+//   iterate before each step into traj (p, T, d), the trajectory the
+//   reference's centralvr_epoch(track=True) returns; the untracked
+//   instantiation compiles without the store.
 //
 // vr_epoch_floor is a probe, not on any path: the serial chain alone (the
 // shuffle tree, the barrier and the partial sums, one exp) for T steps,
@@ -94,6 +98,7 @@ struct Params {
   double* table;            // (p, n) in and out; sbar with svrg (read)
   double* gbar;             // (p, d) in; out with saga
   double* acc;              // (p, d) out (centralvr)
+  double* traj;             // (p, T, d) out: x before each step (TRACK)
   int64_t n, d, T;
   double eta, inv_m, scale, c1, c2, delta;
   int prox, loss;
@@ -193,7 +198,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // k*threads), rows through the ring in shared memory. K = 0: the state in
 // the output buffers in global memory, rows read there (d above the
 // on-chip capacity).
-template <int LANE, int K>
+template <int LANE, int K, bool TRACK>
 __global__ void __launch_bounds__(K == 0 ? 1024 : kMaxRegThreads)
 vr_epoch_kernel(const Params P) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -301,6 +306,12 @@ vr_epoch_kernel(const Params P) {
       // the barrier above freed the slot of step t-1: refill it
       issue(t + kStages - 1, pi);
       s = residual(z, bc, P.loss, P.delta);
+      if constexpr (TRACK) {
+        double* tr = P.traj + (w * T + t) * d;
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          if (tid + q * nt < d) tr[tid + q * nt] = xr[q];
+      }
 #pragma unroll
       for (int q = 0; q < K; ++q) {
         if (tid + q * nt < d) {
@@ -329,6 +340,7 @@ vr_epoch_kernel(const Params P) {
         const double go = so * a;
         const double gb = gg[j];
         const double v = g - go + gb;
+        if constexpr (TRACK) P.traj[(w * T + t) * d + j] = xg[j];
         xg[j] = prox_epilogue(xg[j] * P.scale - P.eta * v, P.prox, P.c1,
                               P.c2);
         if (LANE == kCentralVR) ag[j] = ag[j] + g * P.inv_m;
@@ -378,27 +390,27 @@ __global__ void __launch_bounds__(1024) vr_epoch_floor_kernel(double* out,
   if (threadIdx.x == 0) out[blockIdx.x] = v;
 }
 
-template <int LANE, int K>
+template <int LANE, int K, bool TRACK>
 int launch(const Params& p, int64_t workers, int threads, int smem,
            cudaStream_t stream) {
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      vr_epoch_kernel<LANE, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+      vr_epoch_kernel<LANE, K, TRACK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  vr_epoch_kernel<LANE, K><<<static_cast<unsigned>(workers), threads, smem,
-                             stream>>>(p);
+  vr_epoch_kernel<LANE, K, TRACK><<<static_cast<unsigned>(workers), threads,
+                                    smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int LANE>
+template <int LANE, bool TRACK = false>
 int launch_lane(const Params& p, int64_t workers, int threads, int coords,
                 int smem, cudaStream_t stream) {
   switch (coords) {
-    case 0: return launch<LANE, 0>(p, workers, threads, smem, stream);
-    case 1: return launch<LANE, 1>(p, workers, threads, smem, stream);
-    case 2: return launch<LANE, 2>(p, workers, threads, smem, stream);
-    case 4: return launch<LANE, 4>(p, workers, threads, smem, stream);
-    case 8: return launch<LANE, 8>(p, workers, threads, smem, stream);
+    case 0: return launch<LANE, 0, TRACK>(p, workers, threads, smem, stream);
+    case 1: return launch<LANE, 1, TRACK>(p, workers, threads, smem, stream);
+    case 2: return launch<LANE, 2, TRACK>(p, workers, threads, smem, stream);
+    case 4: return launch<LANE, 4, TRACK>(p, workers, threads, smem, stream);
+    case 8: return launch<LANE, 8, TRACK>(p, workers, threads, smem, stream);
     default: return kErrPlan;
   }
 }
@@ -407,10 +419,12 @@ int launch_lane(const Params& p, int64_t workers, int threads, int coords,
 
 // Plain C interface, loaded with ctypes: returns the cudaError_t of the
 // launch (0 on success), or one of Error for a plan the kernel cannot run.
+// traj: null, or (workers, T, d) for the centralvr lane's tracked epoch.
 extern "C" {
 
 int vr_epoch_f64(int lane, const void* A, const void* b, const void* order,
-                 void* x, void* table, void* gbar, void* acc, int64_t workers,
+                 void* x, void* table, void* gbar, void* acc, void* traj,
+                 int64_t workers,
                  int64_t n, int64_t d, int64_t T, double eta, double inv_m,
                  double scale, int prox, double c1, double c2, int loss,
                  double delta, int threads, int coords, void* stream) {
@@ -427,13 +441,17 @@ int vr_epoch_f64(int lane, const void* A, const void* b, const void* order,
   Params p{static_cast<const double*>(A), static_cast<const double*>(b),
            static_cast<const int64_t*>(order), static_cast<double*>(x),
            static_cast<double*>(table), static_cast<double*>(gbar),
-           static_cast<double*>(acc), n, d, T, eta, inv_m, scale, c1, c2,
-           delta, prox, loss};
+           static_cast<double*>(acc), static_cast<double*>(traj), n, d, T,
+           eta, inv_m, scale, c1, c2, delta, prox, loss};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int bytes = static_cast<int>(smem);
+  if (traj && lane != kCentralVR) return kErrLane;
   switch (lane) {
     case kCentralVR:
-      return launch_lane<kCentralVR>(p, workers, threads, coords, bytes, st);
+      return traj ? launch_lane<kCentralVR, true>(p, workers, threads,
+                                                  coords, bytes, st)
+                  : launch_lane<kCentralVR>(p, workers, threads, coords,
+                                            bytes, st);
     case kSaga:
       return launch_lane<kSaga>(p, workers, threads, coords, bytes, st);
     case kSvrg:
@@ -456,7 +474,7 @@ const char* vr_epoch_error_string(int code) {
   switch (code) {
     case kErrPlan: return "launch plan out of range";
     case kErrSmem: return "shared memory above the block's 232448 bytes";
-    case kErrLane: return "unknown lane";
+    case kErrLane: return "unknown lane, or a tracked lane other than centralvr";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -66,7 +66,7 @@ def _load():
         lib = ctypes.CDLL(str(kbuild.build(SOURCE)[0]))
         ptr, i64, f64, i32 = (ctypes.c_void_p, ctypes.c_int64,
                               ctypes.c_double, ctypes.c_int)
-        lib.vr_epoch_f64.argtypes = ([i32] + [ptr] * 7 + [i64] * 4
+        lib.vr_epoch_f64.argtypes = ([i32] + [ptr] * 8 + [i64] * 4
                                      + [f64] * 3 + [i32] + [f64] * 2 + [i32]
                                      + [f64] + [i32] * 2 + [ptr])
         lib.vr_epoch_f64.restype = i32
@@ -112,10 +112,13 @@ def launch_plan(p: int, d: int) -> Plan:
     return Plan(p, threads, coords, True, FIXED_BYTES + 8 * STAGES * d)
 
 
-def _check(A, b, orders, x, table, gbar, lane, m):
+def _check(A, b, orders, x, table, gbar, lane, m, track=False):
     if lane not in ref.LANES:
         raise ValueError(f"vr_epoch: lane must be one of "
                          f"{sorted(ref.LANES)}, got {lane!r}")
+    if track and lane != "centralvr":
+        raise ValueError(f"vr_epoch: only the centralvr lane tracks its "
+                         f"iterates, got lane {lane!r}")
     named = (("A", A), ("b", b), ("orders", orders), ("x", x),
              ("table", table), ("gbar", gbar))
     for name, t in named:
@@ -160,7 +163,8 @@ def _loss_code(kind: str):
 
 
 def vr_epoch(A, b, orders, x, table, gbar, *, lane: str, kind: str,
-             eta: float, decay: float, m: int, prox=None):
+             eta: float, decay: float, m: int, prox=None,
+             track: bool = False):
     """A fused VR epoch of p workers, one launch for all of them; returns
     (x', table', gbar', acc) — see ``ref.vr_epoch_ref`` for the arithmetic
     and the lanes. Every operand float64 (``orders`` int64) and contiguous,
@@ -170,32 +174,36 @@ def vr_epoch(A, b, orders, x, table, gbar, *, lane: str, kind: str,
     :class:`repro_torch.prox.operators.ProxSpec` or None; ``decay`` the
     l2 term's multiplier (x*(1 - eta*decay)); ``m`` the 1/m scale of acc
     (centralvr) and of gbar's update (saga). The inputs are not modified.
-    Raises on an index out of range, which costs one sync a call."""
-    _check(A, b, orders, x, table, gbar, lane, m)
+    ``track`` (centralvr lane only): a fifth output, the (p, T, d)
+    iterates before each step, stored by the kernel's tracked
+    instantiation in the same launch. Raises on an index out of range,
+    which costs one sync a call."""
+    _check(A, b, orders, x, table, gbar, lane, m, track)
     check_orders(orders, A.shape[1])
     return _dispatch(A, b, orders, x, table, gbar, lane=lane, kind=kind,
-                     eta=eta, decay=decay, m=m, prox=prox)
+                     eta=eta, decay=decay, m=m, prox=prox, track=track)
 
 
 def vr_epoch_in_range(A, b, orders, x, table, gbar, *, lane: str,
                       kind: str, eta: float, decay: float, m: int,
-                      prox=None):
+                      prox=None, track: bool = False):
     """:func:`vr_epoch` for ``orders`` already known to lie in [0, n): every
     other check, and no sync, so the host can run ahead of the card. The
     convex drivers check each run's draws once where they come in
     (``core/distributed._as_index``) and launch through this."""
-    _check(A, b, orders, x, table, gbar, lane, m)
+    _check(A, b, orders, x, table, gbar, lane, m, track)
     return _dispatch(A, b, orders, x, table, gbar, lane=lane, kind=kind,
-                     eta=eta, decay=decay, m=m, prox=prox)
+                     eta=eta, decay=decay, m=m, prox=prox, track=track)
 
 
 def _dispatch(A, b, orders, x, table, gbar, *, lane, kind, eta, decay, m,
-              prox):
+              prox, track):
     """The plain version on CPU tensors, the kernel on CUDA tensors."""
     _loss_code(kind)
     kw = dict(lane=lane, kind=kind, eta=eta, decay=decay, m=m, prox=prox)
     if x.device.type == "cpu":
-        return ref.vr_epoch_ref(A, b, orders, x, table, gbar, **kw)
+        return ref.vr_epoch_ref(A, b, orders, x, table, gbar, track=track,
+                                **kw)
     if x.device.type != "cuda":
         raise ValueError(f"vr_epoch runs on CUDA or CPU tensors, got "
                          f"{x.device}")
@@ -206,16 +214,22 @@ def _dispatch(A, b, orders, x, table, gbar, *, lane, kind, eta, decay, m,
     table_out = table if lane == "svrg" else table.clone()
     gbar_out = gbar.clone() if lane == "saga" else gbar
     acc = torch.empty_like(x) if lane == "centralvr" else None
-    _launch(A, b, orders, x_out, table_out, gbar_out, acc, **kw)
-    return x_out, table_out, gbar_out, acc
+    if not track:
+        _launch(A, b, orders, x_out, table_out, gbar_out, acc, **kw)
+        return x_out, table_out, gbar_out, acc
+    traj = x.new_empty((x.shape[0], orders.shape[1], x.shape[1]))
+    _launch(A, b, orders, x_out, table_out, gbar_out, acc, traj=traj, **kw)
+    return x_out, table_out, gbar_out, acc, traj
 
 
 def _launch(A, b, orders, x, table, gbar, acc, *, lane: str, kind: str,
-            eta: float, decay: float, m: int, prox=None):
+            eta: float, decay: float, m: int, prox=None, traj=None):
     """One launch on CUDA operands that the wrappers have checked (their
     contract), updating x, table (centralvr, saga), gbar (saga) and acc
-    (centralvr; None otherwise) in place. Only the wrappers above call it,
-    and timing code, which launches back to back on buffers it owns."""
+    (centralvr; None otherwise) in place, and filling ``traj`` (the
+    centralvr lane's tracked instantiation) when it is given. Only the
+    wrappers above call it, and timing code, which launches back to back
+    on buffers it owns."""
     global launches
     p, n, d = A.shape
     plan = launch_plan(p, d)
@@ -225,7 +239,8 @@ def _launch(A, b, orders, x, table, gbar, acc, *, lane: str, kind: str,
     err = lib.vr_epoch_f64(
         ref.LANES[lane], A.data_ptr(), b.data_ptr(), orders.data_ptr(),
         x.data_ptr(), table.data_ptr(), gbar.data_ptr(),
-        acc.data_ptr() if acc is not None else None, p, n, d,
+        acc.data_ptr() if acc is not None else None,
+        traj.data_ptr() if traj is not None else None, p, n, d,
         orders.shape[1], eta, 1.0 / m, 1.0 - eta * decay, prox_kind, c1, c2,
         loss, delta, plan.threads, plan.coords,
         torch.cuda.current_stream().cuda_stream)

@@ -92,7 +92,8 @@ def residual(z, bb, kind: str):
 
 
 def vr_epoch_ref(A, b, orders, x, table, gbar, *, lane: str, kind: str,
-                 eta: float, decay: float, m: int, prox=None):
+                 eta: float, decay: float, m: int, prox=None,
+                 track: bool = False):
     """A fused VR epoch of p workers as a loop of steps, each one
     ``vr_update_ref`` (the arithmetic of ``csrc/vr_epoch.cu``): ``A``
     (p, n, d), ``b`` (p, n), ``orders`` (p, T) indices into each
@@ -107,8 +108,9 @@ def vr_epoch_ref(A, b, orders, x, table, gbar, *, lane: str, kind: str,
     (gbar += (g - g_old)/m in the step, no acc) or "svrg" (``table`` is
     the snapshot residuals sbar, read only; no acc). Returns (x, table,
     gbar, acc): new tensors where the lane changes them, else the inputs
-    themselves; acc is None outside the centralvr lane. The inputs are not
-    modified."""
+    themselves; acc is None outside the centralvr lane. ``track`` (the
+    centralvr lane): a fifth output, the (p, T, d) iterates before each
+    step. The inputs are not modified."""
     if lane not in LANES:
         raise ValueError(f"vr_epoch: lane must be one of {sorted(LANES)}, "
                          f"got {lane!r}")
@@ -119,7 +121,11 @@ def vr_epoch_ref(A, b, orders, x, table, gbar, *, lane: str, kind: str,
     x = x.clone()
     tbl = table if lane == "svrg" else table.clone()
     acc = torch.zeros_like(x)     # the gtilde lane; scratch outside centralvr
+    traj = (x.new_empty((x.shape[0], orders.shape[1], x.shape[1]))
+            if track else None)
     for t in range(orders.shape[1]):
+        if track:
+            traj[:, t] = x
         a = rows[:, t]
         idx = orders[:, t:t + 1]
         s = residual(torch.linalg.vecdot(a, x), labels[:, t], kind)
@@ -128,4 +134,5 @@ def vr_epoch_ref(A, b, orders, x, table, gbar, *, lane: str, kind: str,
             m=m, saga=saga, decay=decay, prox=prox)
         if lane != "svrg":
             tbl.scatter_(1, idx, s[:, None])
-    return x, tbl, gbar, acc if lane == "centralvr" else None
+    out = (x, tbl, gbar, acc if lane == "centralvr" else None)
+    return out + (traj,) if track else out

@@ -118,6 +118,11 @@ _REGISTRY = {
 }
 
 
+def names() -> tuple:
+    """Registered operator names (for listings and error messages)."""
+    return tuple(sorted(_REGISTRY))
+
+
 def _signatures() -> str:
     return ", ".join(_REGISTRY[k].signature for k in sorted(_REGISTRY))
 
@@ -209,3 +214,60 @@ def grad_map(spec: str | ProxSpec | None, x, grad, eta):
     if spec is None:
         return eta * grad
     return x - apply(spec, x - eta * grad, eta)
+
+
+# ---------------------------------------------------------------------------
+# Numeric oracle (tests only): golden-section search, no closed form
+# ---------------------------------------------------------------------------
+
+_GOLD = 0.6180339887498949  # 1/phi
+
+
+def _golden_min(f, lo, hi, iters: int):
+    """Vectorized golden-section minimization of a per-coordinate convex f
+    over the bracket [lo, hi]; the interval shrinks by 1/phi a step."""
+    a, b = lo, hi
+    for _ in range(iters):
+        span = b - a
+        x1 = b - _GOLD * span
+        x2 = a + _GOLD * span
+        take_left = f(x1) <= f(x2)
+        a = torch.where(take_left, a, x1)
+        b = torch.where(take_left, x2, b)
+    return 0.5 * (a + b)
+
+
+def numeric_prox(spec: str | ProxSpec, w, eta, iters: int = 120):
+    """Solve the prox subproblem numerically, without the closed form:
+    elementwise operators as independent scalar problems
+    ``min_z 0.5*(z - w_i)^2 + eta*g_i(z)`` by golden-section search over
+    a bracket that contains the minimizer; ``group_l2`` as a 1-D search
+    over each group's radius. Accurate to ~sqrt(eps)*scale, about 1e-8."""
+    ps = parse(spec)
+    w = torch.as_tensor(w)
+    if ps.name == "box":
+        lo, hi = ps.params
+        a = torch.clamp(torch.clamp(w, max=lo), lo, hi) * torch.ones_like(w)
+        b = torch.clamp(torch.clamp(w, min=hi), lo, hi) * torch.ones_like(w)
+        return _golden_min(lambda z: 0.5 * (z - w) ** 2, a, b, iters)
+    if ps.name in ("l1", "elasticnet"):
+        lam1, lam2 = ps.params if ps.name == "elasticnet" else (
+            ps.params[0], 0.0)
+
+        def f(z):
+            return (0.5 * (z - w) ** 2 + eta * lam1 * torch.abs(z)
+                    + eta * lam2 * z * z)
+
+        bound = torch.abs(w) + 1.0      # |prox| <= |w| for these operators
+        return _golden_min(f, -bound, bound, iters)
+    # group_l2: the optimum lies on the ray through w_g; search the radius
+    lam1, size = ps.params
+    groups = w.reshape(w.shape[:-1] + (-1, int(size)))
+    norms = torch.linalg.norm(groups, dim=-1)
+
+    def f(t):
+        return 0.5 * (t - norms) ** 2 + eta * lam1 * t
+
+    t_star = _golden_min(f, torch.zeros_like(norms), norms + 1.0, iters)
+    unit = groups / torch.clamp(norms, min=1e-300)[..., None]
+    return (unit * t_star[..., None]).reshape(w.shape)

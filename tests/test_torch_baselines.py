@@ -106,7 +106,7 @@ def test_baseline_matches_reference(algo, kw):
     _close(have.rels, want.rels)
     assert have.rels.shape == (ROUNDS,)
     assert have.grad_evals is None and want.grad_evals is None
-    assert have.launches == {"vr_update": 0, "vr_epoch": 0}
+    assert have.launches == {"vr_update": 0, "vr_epoch": 0, "lazy_epoch": 0}
     assert have.device == "cpu"
     assert have.comms["n_allreduce_per_round"] == \
         want.comms["n_allreduce_per_round"]

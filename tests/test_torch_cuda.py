@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA card: the hand-written
-kernels (K1 vr_update and its epoch route vr_epoch, K2 rmsnorm, K3
-flash_attention, K4 ssd_scan) against their plain versions, on the card,
-the fused convex solves and the fused Mamba2 step, and the fused paths'
-refusal to fall back when a kernel does not build.
+kernels (K1 vr_update and its epoch route vr_epoch, the sparse driver's
+lazy_epoch, K2 rmsnorm, K3 flash_attention, K4 ssd_scan) against their
+plain versions, on the card, the fused convex solves, the sparse route
+and the fused Mamba2 step, and the fused paths' refusal to fall back when
+a kernel does not build.
 
 Run them on a machine with a Hopper card (this file imports no jax, and
 ``--noconftest`` skips the suite's jax set-up):
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.lazy_epoch import cases as lazy_cases
 from repro_torch.kernels.vr_update import epoch as vr_epoch
 from repro_torch.kernels.vr_update import kernel as vr_kernel
 from repro_torch.kernels.vr_update import ref as vr_ref
@@ -156,10 +158,12 @@ def test_fused_solve_launches_vr_epoch_once_per_epoch_call(device, algo, p,
             algo, p=p, rounds=R, fused=fused, **kw), cfg)
         assert runs[fused].launches == {
             "vr_update": vr_kernel.launches - before[0],
-            "vr_epoch": vr_epoch.launches - before[1]}
+            "vr_epoch": vr_epoch.launches - before[1], "lazy_epoch": 0}
     assert runs[True].launches == {"vr_update": 0,
-                                   "vr_epoch": expected(R, p)}
-    assert runs[False].launches == {"vr_update": 0, "vr_epoch": 0}
+                                   "vr_epoch": expected(R, p),
+                                   "lazy_epoch": 0}
+    assert runs[False].launches == {"vr_update": 0, "vr_epoch": 0,
+                                    "lazy_epoch": 0}
     assert runs[True].device == torch.cuda.get_device_name(device)
     assert np.abs(runs[True].x - runs[False].x).max() <= 1e-10
     assert np.abs(runs[True].rels - runs[False].rels).max() <= 1e-10
@@ -265,6 +269,122 @@ def test_fused_solve_raises_when_vr_epoch_does_not_build(device,
         repro_torch.solve(repro_torch.RunSpec("saga", rounds=1, fused=True),
                           ConvexConfig(problem="logistic", n=40, d=24))
     assert (vr_kernel.launches, vr_epoch.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# vr_epoch's tracked epoch, and the sparse driver's lazy_epoch
+# ---------------------------------------------------------------------------
+
+def test_tracked_fused_epoch_matches_unfused_in_one_launch(device):
+    """track_iterates on the fused route: one vr_epoch launch an epoch
+    (the kernel's tracked instantiation stores the iterate before each
+    step), against the unfused tracked epoch at 1e-10; untracked, still
+    one launch an epoch call."""
+    from repro_torch.core import centralvr, convex
+    from repro_torch.core import fused as tfused
+    gen = torch.Generator(device=device).manual_seed(3)
+    prob = convex.make_logistic_data(gen, 500, 20)
+    eta = convex.auto_eta(prob)
+    fp = tfused.make_params(True, eta, prob.lam, device)
+    init, per = centralvr.draw_orders(gen, prob.n, 2)
+    st = centralvr.init_state(prob, eta, init)
+    for order in per:
+        before = (vr_kernel.launches, vr_epoch.launches)
+        fst, ftraj = centralvr.epoch(prob, st, eta, order,
+                                     track_iterates=True, fused=fp)
+        torch.cuda.synchronize()
+        assert (vr_kernel.launches, vr_epoch.launches) == (before[0],
+                                                           before[1] + 1)
+        ust, utraj = centralvr.epoch(prob, st, eta, order,
+                                     track_iterates=True)
+        assert ftraj.shape == (prob.n, prob.d)
+        assert torch.equal(ftraj[0], st.x)
+        assert (ftraj - utraj).abs().max().item() <= 1e-10
+        for h, w in zip(fst, ust):
+            assert (h - w).abs().max().item() <= 1e-10
+        before = vr_epoch.launches
+        plain = centralvr.epoch(prob, st, eta, order, fused=fp)
+        assert vr_epoch.launches == before + 1
+        assert torch.equal(plain.x, fst.x)
+        st = ust
+
+
+@pytest.mark.parametrize("case", lazy_cases.CASES,
+                         ids=lambda c: c.label.replace(" ", "-"))
+def test_lazy_epoch_kernel_matches_plain(device, case):
+    """chip_smoke.py's phase 5b (a) cases: one launch, every output within
+    1e-10 of its largest magnitude, the inputs left as they were."""
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
+    from repro_torch.kernels.lazy_epoch import ref as lazy_ref
+    args, kw = lazy_cases.inputs(case, device)
+    before = lazy_kernel.launches
+    have = lazy_kernel.lazy_epoch(*args, **kw)
+    torch.cuda.synchronize()
+    assert lazy_kernel.launches == before + 1
+    want = lazy_ref.lazy_epoch_ref(*args, **kw)
+    for h, wt in zip(have, want):
+        assert bool(torch.isfinite(h).all())
+        assert (h - wt).abs().max().item() <= 1e-10 * wt.abs().max().item()
+    assert torch.equal(args[4], lazy_cases.inputs(case, device)[0][4])
+
+
+def test_sparse_route_launches_lazy_epoch_and_never_its_plain_version(
+        device, monkeypatch):
+    """sampling="sparse" on the card: one lazy_epoch launch an epoch call
+    (init included), no vr_epoch, no K1, the plain version never called,
+    and the dense fused route's answer within 1e-10."""
+    import repro_torch
+    from repro_torch.core import centralvr
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
+    from repro_torch.kernels.lazy_epoch import ref as lazy_ref
+    from repro_torch.prox import lazy
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    prob = lazy.make_sparse_data(gen, 300, 500, 6, kind="logistic")
+    R = 4
+    orders = centralvr.draw_orders(gen, prob.n, R)
+    monkeypatch.setattr(lazy_ref, "lazy_epoch_ref", refuse)
+    before = lazy_kernel.launches
+    sparse = repro_torch.solve(repro_torch.RunSpec(
+        "centralvr", rounds=R, sampling="sparse", prox="l1:1e-4"), prob,
+        orders=orders)
+    assert lazy_kernel.launches == before + R + 1
+    assert sparse.launches == {"vr_update": 0, "vr_epoch": 0,
+                               "lazy_epoch": R + 1}
+    dense = repro_torch.solve(repro_torch.RunSpec(
+        "centralvr", rounds=R, fused=True, prox="l1:1e-4"), prob,
+        orders=orders)
+    assert dense.launches == {"vr_update": 0, "vr_epoch": R + 1,
+                              "lazy_epoch": 0}
+    assert np.abs(sparse.x - dense.x).max() <= 1e-10
+    assert np.abs(sparse.rels - dense.rels).max() <= 1e-10 * np.abs(
+        dense.rels).max()
+    assert sparse.rels[-1] < sparse.rels[0]
+
+
+def test_sparse_route_raises_when_lazy_epoch_does_not_build(device,
+                                                            monkeypatch,
+                                                            tmp_path):
+    import repro_torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
+    from repro_torch.prox import lazy
+
+    bad = tmp_path / "lazy_epoch_broken.cu"
+    bad.write_text("this is not CUDA\n")
+    monkeypatch.setattr(lazy_kernel, "SOURCE", bad)
+    monkeypatch.setattr(lazy_kernel, "_lib", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    prob = lazy.make_sparse_data(torch.Generator(device=device).manual_seed(2),
+                                 40, 30, 3)
+    before = lazy_kernel.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        repro_torch.solve(repro_torch.RunSpec("centralvr", rounds=1,
+                                              sampling="sparse"), prob)
+    assert lazy_kernel.launches == before
 
 
 # ---------------------------------------------------------------------------

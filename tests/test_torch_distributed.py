@@ -103,7 +103,7 @@ def test_distributed_matches_reference(algo, kw):
         assert type(have.state).__name__ == type(want.state).__name__
         for h, w in zip(have.state, want.state):
             _close(h, w)
-    assert have.launches == {"vr_update": 0, "vr_epoch": 0}
+    assert have.launches == {"vr_update": 0, "vr_epoch": 0, "lazy_epoch": 0}
     assert have.device == "cpu"
     # the port counts float64's 8 bytes an element, the reference 4
     assert have.comms["bytes_per_round"] == 2 * want.comms["bytes_per_round"]

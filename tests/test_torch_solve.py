@@ -74,7 +74,7 @@ def test_centralvr_matches_reference(sampling, fused, prox):
     _close(have.state.table, want.state.table)
     _close(have.state.gbar, want.state.gbar)
     np.testing.assert_array_equal(have.grad_evals, want.grad_evals)
-    assert have.launches == {"vr_update": 0, "vr_epoch": 0}
+    assert have.launches == {"vr_update": 0, "vr_epoch": 0, "lazy_epoch": 0}
     assert have.device == "cpu"
 
 
@@ -173,7 +173,6 @@ def test_runspec_refuses_like_the_reference(kw):
     (dict(algo="centralvr_async", p=2, elastic=True), "item 11"),
     (dict(algo="centralvr", backend="spmd"), "item 9"),
     (dict(algo="centralvr_sync", p=2, topology="process"), "item 11"),
-    (dict(algo="centralvr", sampling="sparse"), "item 8"),
 ])
 def test_unported_parts_raise_naming_the_roadmap_item(kw, item):
     repro.RunSpec(**kw)            # valid in the reference
@@ -250,7 +249,8 @@ def test_own_data_and_orders_from_the_seed():
     row = json.loads(json.dumps(a.provenance()))
     assert row["spec"]["eta"] == a.spec.eta > 0
     assert row["device"] == "cpu"
-    assert row["launches"] == {"vr_update": 0, "vr_epoch": 0}
+    assert row["launches"] == {"vr_update": 0, "vr_epoch": 0,
+                               "lazy_epoch": 0}
 
 
 def test_explicit_orders_are_shape_checked():
