@@ -80,8 +80,12 @@ Phases, each of which raises on failure:
      1e-10 of its largest magnitude: vr on and off x logistic and ridge
      x prox none and l1 at (n 48, d 40, width 3), width 1, widths 300
      and 1024 (more entries than a block's threads), zero absorbing,
-     drifts of ~1e-300 and ~1e-12 (a step count above 2**31), and the
-     README's shape (n 4096, d 16384, width 32); (b) the README's sparse
+     drifts of ~1e-300 and ~1e-12 (a step count above 2**31), the
+     README's shape (n 4096, d 16384, width 32), rows of varying length
+     at the stand-in's n and d (value-0 padding up to the longest row,
+     1024; the epoch's first 2000 steps), consecutive rows that share
+     most coordinates (d = 2 x width) and rows visited twice in a row
+     (``kernels/lazy_epoch/cases.py``); (b) the README's sparse
      example through ``solve`` (20 rounds, ``l1:0.001``, whose answer is
      x = 0 at this scale, and ``l1:1e-6``) against the dense fused route
      on the same draws: x within 1e-10, rels within 1e-10 relative,
@@ -91,8 +95,15 @@ Phases, each of which raises on failure:
      nonzeros in every row, its mean (the real rows' lengths vary, and
      the longest set the kernel's width), drawn, 3 rounds, ``l1:1e-5``
      and ``l1:1e-7``; and ``[time]`` lines: lazy_epoch per epoch and per
-     step at both shapes beside its bound and the bytes its steps touch,
-     its plain version's time, and the dense route's vr_epoch per step
+     step at both shapes and on rows of varying length at the stand-in's
+     n and d (a log-normal law of lengths, mean 74 before the cut at
+     1024) beside its bound (the visited rows' nonzero entries) and the
+     bytes its steps touch, its plain version's time, its phase split
+     (the timing probes that end every step after the look-ahead's
+     copies, its membership (the state load), its catch-up and the
+     reduction, and the passes over d alone) and its
+     serial floor (the probe ``lazy_epoch_floor``) with which of bound
+     and floor sets the pace, and the dense route's vr_epoch per step
      on the stand-in; then
      one fused Algorithm 1 run with ``track_iterates`` (toy-logistic, 2
      epochs, 3 vr_epoch launches) against the unfused one at 1e-9;
@@ -148,8 +159,13 @@ prints the device time, the device busy share against the same run
 untraced, the kernels that take the device time, and the LM backward's
 device time by autograd node.
 
+``--sparse`` runs only the device phase, the build and phase 5b.
+
 ``--rates`` runs only the device phase, vr_epoch's device time at each
-convex path's shape, and every fused VR run of phases 4 and 5 through
+convex path's shape, lazy_epoch's per epoch through its public wrapper
+on phase 5b's three timed problems (the README shape, the uniform-74
+stand-in, the rows of varying length; drawn from this checkout's case
+module), and every fused VR run of phases 4 and 5 through
 ``solve`` (after one small solve that builds the kernel), printing each
 run's inner steps/s; ``--src DIR`` imports the
 port from another checkout's ``src`` instead, so that two checkouts are
@@ -910,19 +926,26 @@ def sparse_pair(torch, kernels, label, prob, rounds, prox):
                 rels=[float(r) for r in sp.rels])
 
 
-def lazy_bound(n, d, width, T):
-    """The least time of one lazy epoch at the card's peak rates: each
-    input read once and each output written once (the visited rows'
-    int32 coordinates and float64 values, labels, the orders, z, the
-    table and gbar in; z, the table and acc out), against the card's
-    bytes/s; operations (~30 float64 a row entry a step: the catch-up's
-    rounds, the dot, the update) are far below. Returns (bound ms, bytes
-    or operations, bytes, the bytes the steps touch: every row entry's z,
-    last, acc and gbar read and z, last, acc written, the table entry read
-    and written, and the passes over d at each end)."""
-    nbytes = T * width * 12 + n * 8 + T * 8 + 2 * n * 8 + 4 * d * 8
-    ops = T * (30 * width + 10)
-    touched = (T * width * (12 + 8 + 4 + 8 + 8 + 8 + 4 + 8) + T * (16 + 16)
+def lazy_bound(torch, val, perm, d):
+    """The least time of one lazy epoch at the card's peak rates, from
+    this run's inputs: each input read once and each output written once
+    (the visited rows' nonzero entries, an int32 coordinate and a float64
+    value each, and their labels; the orders; z, the table and gbar in; z,
+    the table and acc out), against the card's bytes/s; operations (~30
+    float64 a nonzero entry a visit: the catch-up's rounds, the dot, the
+    update; ~10 a step) are far below. Padding entries (value 0) need
+    nothing. Returns (bound ms, bytes or operations, bytes, the bytes the
+    steps touch: every visit's nonzero entries' z, last, acc and gbar read
+    and z, last, acc written, the table entry read and written, and the
+    passes over d at each end)."""
+    n, T = val.shape[0], perm.shape[0]
+    nnz = (val != 0).sum(1)
+    rows = torch.unique(perm)
+    read = int(nnz[rows].sum())             # each visited row once
+    visits = int(nnz[perm].sum())           # every visit
+    nbytes = (read * 12 + len(rows) * 8 + T * 8 + 2 * n * 8 + 4 * d * 8)
+    ops = 30 * visits + 10 * T
+    touched = (visits * (12 + 8 + 4 + 8 + 8 + 8 + 4 + 8) + T * (16 + 16)
                + d * (8 + 8 + 4 + 8 + 8 + 4 + 8 + 8) + 2 * n * 8)
     bytes_s = nbytes / PEAK_BYTES_S
     ops_s = ops / PEAK_FLOPS["float64"]
@@ -930,16 +953,10 @@ def lazy_bound(n, d, width, T):
             "bytes" if bytes_s >= ops_s else "operations", nbytes, touched)
 
 
-def time_lazy_epoch(torch, lazy_kernel, lazy_ref, label, prob, *, prox_l1,
-                    plain_ms=None, plain_steps=None):
-    """lazy_epoch at one problem's shape: device time per epoch (CUDA
-    events over back-to-back VR epochs on buffers it owns), per step, its
-    bound; the plain version's time (given, over a whole epoch; else
-    measured here over its first ``plain_steps`` steps)."""
-    from repro_torch.prox import lazy
-
-    sp = lazy.sparsify(prob)
-    n, d, w = sp.n, sp.d, sp.width
+def lazy_epoch_args(torch, idx, val, b, kind, d, prox_l1):
+    """One VR epoch's arguments over sparse rows: a random iterate, table
+    and gbar and a permutation, seeded; returns (args, keywords)."""
+    n = idx.shape[0]
     g = torch.Generator(device="cuda").manual_seed(7)
     f64 = dict(device="cuda", dtype=torch.float64)
     z = 0.01 * torch.randn(d, generator=g, **f64)
@@ -947,10 +964,49 @@ def time_lazy_epoch(torch, lazy_kernel, lazy_ref, label, prob, *, prox_l1,
     gbar = 1e-3 * torch.randn(d, generator=g, **f64)
     perm = torch.randperm(n, generator=g, device="cuda")
     eta = 0.05
-    kw = dict(eta=eta, c=eta * prox_l1, vr=True)
-    outs = (torch.empty_like(z), torch.empty_like(table), torch.empty_like(z),
-            torch.empty(d, dtype=torch.int32, device="cuda"))
-    args = (sp.idx, sp.val, sp.b, sp.kind, z, table, gbar, perm)
+    return ((idx, val, b, kind, z, table, gbar, perm),
+            dict(eta=eta, c=eta * prox_l1, vr=True))
+
+
+def sparse_rows(lazy, prob):
+    """A dense problem's sparse rows as lazy_epoch takes them (``sparsify``):
+    (idx, val, b, kind, d)."""
+    sp = lazy.sparsify(prob)
+    return sp.idx, sp.val, sp.b, sp.kind, sp.d
+
+
+def ragged_rows(torch, n, d):
+    """Rows of varying length at (n, d), ridge (``cases.ragged_rows``: a
+    log-normal law of lengths, mean 74 before the cut at 1024, padded to
+    the longest with value-0 entries), drawn on the card, seeded. The case
+    module is this checkout's even under ``--src``. Returns (idx, val, b,
+    kind, d)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "lazy_epoch_cases", ROOT / "src" / "repro_torch" / "kernels"
+        / "lazy_epoch" / "cases.py")
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    g = torch.Generator(device="cuda").manual_seed(10)
+    idx, val, _ = cases.ragged_rows(g, n, d, cases.LONGEST)
+    b = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    return idx, val, b, "ridge", d
+
+
+def time_lazy_epoch(torch, lazy_kernel, lazy_ref, label, rows, *, prox_l1,
+                    plain_ms=None, plain_steps=None):
+    """lazy_epoch at one shape (``rows``: idx, val, b, kind, d): device
+    time per epoch (CUDA events over back-to-back VR epochs on buffers it
+    owns), per step, its bound, its phase split and serial floor
+    (``time_lazy_split``); the plain version's time (given, over a whole
+    epoch; else measured here over its first ``plain_steps`` steps)."""
+    args, kw = lazy_epoch_args(torch, *rows, prox_l1)
+    idx, val, perm, z = args[0], args[1], args[7], args[4]
+    (n, w), d = idx.shape, z.shape[0]
+    outs = (torch.empty_like(z), torch.empty_like(args[5]),
+            torch.empty_like(z), torch.empty(d, dtype=torch.int32,
+                                             device="cuda"))
     ms = event_ms(torch, lambda: lazy_kernel._launch(*args, *outs, **kw),
                   calls=5)
     if plain_ms is None:
@@ -963,7 +1019,7 @@ def time_lazy_epoch(torch, lazy_kernel, lazy_ref, label, prob, *, prox_l1,
         plain_ms = (time.perf_counter() - t0) * 1e3
     else:
         plain_steps = n
-    bound_ms, bound_by, nbytes, touched = lazy_bound(n, d, w, n)
+    bound_ms, bound_by, nbytes, touched = lazy_bound(torch, val, perm, d)
     plan = lazy_kernel.launch_plan(w)
     rec = dict(label=label, shape=[n, d, w], T=n, dtype="float64", ms=ms,
                per_step_ms=ms / n, plain_ms=plain_ms,
@@ -980,8 +1036,45 @@ def time_lazy_epoch(torch, lazy_kernel, lazy_ref, label, prob, *, prox_l1,
         f"ms ({bound_by}, {nbytes} bytes read or written once), "
         f"{rec['bound_share']!r} of it; the steps touch {touched} bytes "
         f"({rec['touched_ms']!r} ms at the card's rate); {plan.threads} "
-        f"threads of {plan.entries} entries")
+        f"threads of {plan.entries} entries; {int((val != 0).sum())} "
+        f"nonzero of {val.numel()} entries")
+    rec.update(time_lazy_split(torch, lazy_kernel, label, args, outs, kw,
+                               rec))
     return rec
+
+
+def time_lazy_split(torch, lazy_kernel, label, args, outs, kw, rec):
+    """lazy_epoch's phase split at one shape, a ``[time]`` line each: the
+    probe with no step (the two passes over d alone), the probes that end
+    every step after the state load, the catch-up and the reduction
+    (``kernel.probe``; they write no ``last``, so their catch-ups span
+    from step 0), and the whole steps, each per epoch and per step beyond
+    the passes; then the serial floor (the probe ``lazy_epoch_floor`` at
+    the plan's threads: shuffle tree, barriers, the residual, a store)
+    beside the bound, and which of the two sets the pace."""
+    T, ms = rec["T"], rec["ms"]
+    split = {}
+    for phase in lazy_kernel.PROBES:
+        split[phase] = event_ms(torch, lambda: lazy_kernel.probe(
+            phase, *args, *outs, **kw), calls=3)
+    passes = split["passes"]
+    log(f"[time] lazy_epoch {label} split: the passes over d alone "
+        f"{passes!r} ms an epoch ({passes / ms!r} of it)")
+    for phase in list(lazy_kernel.PROBES)[1:] + [None]:
+        t = split.get(phase, ms)
+        what = f"steps ending after the {phase}" if phase else "whole steps"
+        log(f"[time] lazy_epoch {label} split: {what} {t!r} ms an epoch, "
+            f"{(t - passes) / T * 1e3!r} us a step beyond the passes")
+    floor = event_ms(torch, lambda: lazy_kernel.serial_floor(
+        rec["threads"], T), calls=3)
+    paced = "the serial chain" if floor > rec["bound_ms"] else rec["bound_by"]
+    log(f"[time] lazy_epoch {label} serial floor (lazy_epoch_floor, "
+        f"{rec['threads']} threads): {floor!r} ms an epoch, "
+        f"{floor / T * 1e3!r} us a step, {floor / ms!r} of the epoch's "
+        f"time; bound {rec['bound_ms']!r} ms ({rec['bound_by']}); paced by "
+        f"{paced}")
+    return dict(split_ms=split, serial_floor_ms=floor,
+                serial_floor_step_ms=floor / T, paced_by=paced)
 
 
 def dense_epoch_ms(torch, vr_epoch, prob, epochs=RCV1_ROUNDS):
@@ -1074,7 +1167,7 @@ def phase_sparse(torch, kernels):
                         f"16384, 32 a row, {prox})", readme, SPARSE_ROUNDS,
                         prox) for prox in ("l1:0.001", "l1:1e-6")]
     times = [time_lazy_epoch(torch, lazy_kernel, lazy_ref, "README shape",
-                             readme, prox_l1=0.001,
+                             sparse_rows(lazy, readme), prox_l1=0.001,
                              plain_ms=readme_plain_ms)]
     del readme
     n, d, nnz = RCV1
@@ -1086,7 +1179,8 @@ def phase_sparse(torch, kernels):
                          f"{prox})", rcv1, RCV1_ROUNDS, prox)
              for prox in ("l1:1e-5", "l1:1e-7")]
     times.append(time_lazy_epoch(torch, lazy_kernel, lazy_ref,
-                                 "uniform-74 stand-in", rcv1, prox_l1=1e-5,
+                                 "uniform-74 stand-in",
+                                 sparse_rows(lazy, rcv1), prox_l1=1e-5,
                                  plain_steps=2000))
     dense = dense_epoch_ms(torch, kernels["vr_epoch"], rcv1)
     times[-1]["dense_vr_epoch"] = dense
@@ -1100,6 +1194,9 @@ def phase_sparse(torch, kernels):
     lazy._PACK_CACHE.clear()        # it holds the problems' dense A
     gc.collect()
     torch.cuda.empty_cache()
+    times.append(time_lazy_epoch(torch, lazy_kernel, lazy_ref,
+                                 "varying length", ragged_rows(torch, n, d),
+                                 prox_l1=1e-5, plain_steps=2000))
     track = phase_track(torch, kernels)
     log(f"[path] phase 5b (sparse) in {time.perf_counter() - t0:.1f} s")
     return dict(max_abs_err=err_abs, max_rel_err=err_rel, runs=runs,
@@ -1641,6 +1738,7 @@ def phase_rates(torch):
         log(f"[rates] vr_epoch {label} (p {p}, n {n}, d {d}, T {T}, "
             f"{lane}): {ms!r} ms an epoch, {ms / T * 1e3!r} us a step")
         kernel.append(dict(label=label, ms=ms, per_step_ms=ms / T))
+    lazy_times = rates_lazy(torch)
     out = []
     for label, spec, cfg, draws, _, steps, _, vr in (main_runs(torch)
                                                      + family_runs(torch)):
@@ -1658,7 +1756,40 @@ def phase_rates(torch):
             f"{float(res.rels[-1])!r}")
         out.append(dict(label=label, wall_s=wall, inner_steps=steps,
                         inner_steps_s=steps / wall, launches=res.launches))
-    return out, kernel
+    return out, kernel, lazy_times
+
+
+def rates_lazy(torch):
+    """lazy_epoch's device time per epoch through its public wrapper
+    (``lazy_epoch_in_range``, CUDA events over 5 back-to-back VR epochs) on
+    phase 5b's three timed problems, drawn as phase 5b draws them: the
+    README shape, the uniform-74 stand-in and the rows of varying
+    length."""
+    import gc
+
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
+    from repro_torch.prox import lazy
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, d, nnz = RCV1
+    shapes = (("README shape", 0.001, lambda: sparse_rows(
+                  lazy, lazy.make_sparse_data(gen, 4096, 16384, 32))),
+              ("uniform-74 stand-in", 1e-5, lambda: sparse_rows(
+                  lazy, lazy.make_sparse_data(gen, n, d, nnz))),
+              ("varying length", 1e-5, lambda: ragged_rows(torch, n, d)))
+    out = []
+    for label, l1, make in shapes:
+        args, kw = lazy_epoch_args(torch, *make(), l1)
+        (rows, w), T = args[0].shape, args[7].shape[0]
+        ms = event_ms(torch, lambda: lazy_kernel.lazy_epoch_in_range(
+            *args, **kw), calls=5)
+        log(f"[rates] lazy_epoch {label} (n {rows}, d {args[4].shape[0]}, "
+            f"width {w}): {ms!r} ms an epoch, {ms / T * 1e3!r} us a step")
+        out.append(dict(label=label, ms=ms, per_step_ms=ms / T))
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_profile(torch):
@@ -1762,10 +1893,10 @@ def main():
     if "--rates" in sys.argv[1:]:
         smi = phase_device(torch)
         log(f"[rates] repro_torch from {_src_dir()}")
-        rates, kernel = phase_rates(torch)
+        rates, kernel, lazy_times = phase_rates(torch)
         log(f"[card] {smi}")
         log(json.dumps({"rates": rates, "vr_epoch": kernel,
-                        "src": str(_src_dir())}))
+                        "lazy_epoch": lazy_times, "src": str(_src_dir())}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -1791,6 +1922,16 @@ def main():
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build(kernels)
+    if "--sparse" in sys.argv[1:]:
+        sparse = phase_sparse(torch, kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"lazy_epoch": {k: sparse[k] for k in (
+            "max_abs_err", "max_rel_err", "times", "runs")}}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     worst = phase_compare(torch, np, vr_kernel, vr_ref, proxops)
     vr_bf16_err = phase_compare_vr_bf16(torch, vr_kernel, vr_ref)
     epoch_err, epoch_rel = phase_compare_epoch(torch, vr_epoch, vr_ref,
@@ -1882,7 +2023,9 @@ def main():
         **{k: sparse["times"][0][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "T", "dtype", "per_step_ms", "plain_per_step_ms", "bytes",
-            "touched_bytes", "bound_share", "threads", "entries")},
+            "touched_bytes", "bound_share", "threads", "entries",
+            "split_ms", "serial_floor_ms", "serial_floor_step_ms",
+            "paced_by")},
         "other_shapes": sparse["times"][1:], "paths": sparse["runs"],
         "track_iterates": sparse["track"]}, {
         "name": "rmsnorm", "route": "cuda",

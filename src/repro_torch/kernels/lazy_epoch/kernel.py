@@ -6,7 +6,10 @@ which runs one lazy sparse CentralVR epoch (``prox/lazy.py``,
 It replaces no Pallas kernel: the reference runs the epoch as one jitted
 ``lax.scan``, ``_lazy_epoch`` (``src/repro/prox/lazy.py:215``); this is
 its counterpart on the card, as ``vr_epoch`` is the dense epoch's. What
-bounds it is the step's serial chain, not bytes (see the source's note).
+bounds it is the step's serial chain, not bytes (see the source's note):
+a step group of threads runs the steps while a look-ahead group catches
+the next row up, so the catch-up is off the chain, and entries of value
+0 (``sparsify``'s padding) are skipped.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use, from
 the package's own source, into ``build/torch_ext/`` (``kernels/build.py``,
@@ -31,9 +34,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "lazy_epoch.cu"
 
 # loss kinds, as the kernel numbers them (the base of a "huber@0.5" kind)
 LOSS_KINDS = {"logistic": 0, "ridge": 1, "huber": 2, "pseudo_huber": 3}
-MAX_THREADS = 128         # the block's threads at most
+MAX_THREADS = 128         # a group's threads at most (the block: 256)
 ENTRIES = (1, 2, 4, 8)    # entries a thread, as the kernel is built
 MAX_WIDTH = MAX_THREADS * ENTRIES[-1]
+# the timing probes: each step stops after this phase ("passes": no step,
+# the two passes over d alone; "copies": the look-ahead's copies of the
+# coming rows and their state; "load": and the membership of the last
+# two rows); the epoch itself is FULL
+PROBES = {"passes": 0, "copies": 1, "load": 2, "catch-up": 3,
+          "reduction": 4}
+FULL = 5
 
 # kernel launches since the last reset (the wrapper adds one per launch)
 launches = 0
@@ -52,10 +62,12 @@ def _load():
         lib = ctypes.CDLL(str(kbuild.build(SOURCE)[0]))
         ptr, i64, f64, i32 = (ctypes.c_void_p, ctypes.c_int64,
                               ctypes.c_double, ctypes.c_int)
-        lib.lazy_epoch_f64.argtypes = ([ptr] * 11 + [i64] * 4 + [f64] * 2
-                                       + [i32] * 2 + [f64] + [i32] * 2
-                                       + [ptr])
+        lib.lazy_epoch_f64.argtypes = ([i32] + [ptr] * 11 + [i64] * 4
+                                       + [f64] * 2 + [i32] * 2 + [f64]
+                                       + [i32] * 2 + [ptr])
         lib.lazy_epoch_f64.restype = i32
+        lib.lazy_epoch_floor.argtypes = [ptr, i32, i64, ptr]
+        lib.lazy_epoch_floor.restype = i32
         lib.lazy_epoch_error_string.argtypes = [i32]
         lib.lazy_epoch_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -63,15 +75,17 @@ def _load():
 
 
 class Plan(NamedTuple):
-    threads: int        # the block's threads (one block)
+    threads: int        # each group's threads (one block)
     entries: int        # entries of the row a thread
 
 
 def launch_plan(width: int) -> Plan:
-    """One block. Up to width 128 a thread per entry, rounded up to whole
-    warps (one warp up to width 32: its reduction needs no block barrier).
-    Wider rows: 2, 4 or 8 entries a thread over at most 128 threads, up to
-    width 1024, the widest row the kernel takes."""
+    """One block of 256 threads: a step group and a look-ahead group of
+    ``threads`` each (the rest join only the passes over d). Up to width
+    128 a thread per entry, rounded up to whole warps (one warp up to width
+    32: its reduction needs no barrier). Wider rows: 2, 4 or 8 entries a
+    thread over at most 128 threads, up to width 1024, the widest row the
+    kernel takes."""
     if width < 1 or width > MAX_WIDTH:
         raise ValueError(f"lazy_epoch: row width {width} is out of the "
                          f"kernel's range [1, {MAX_WIDTH}]")
@@ -189,12 +203,46 @@ def _launch(idx, val, b, kind, z, table, gbar, perm, z_out, table_out, acc,
     the wrappers above call it, and timing code, which launches back to
     back on buffers it owns."""
     global launches
+    _call(FULL, idx, val, b, kind, z, table, gbar, perm, z_out, table_out,
+          acc, last, eta=eta, c=c, vr=vr)
+    launches += 1
+
+
+def probe(phase: str, idx, val, b, kind, z, table, gbar, perm, z_out,
+          table_out, acc, last, *, eta: float, c: float, vr: bool):
+    """Launch the timing probe that ends every step after ``phase`` (a key
+    of PROBES) on operands as :func:`_launch` takes them; its outputs are
+    not an epoch's. Not a path's kernel: it is not counted. A probe
+    writes no ``last``, so its catch-ups span from step 0: they bound the
+    epoch's from above. Probes run where d fits the kernel's per-coordinate
+    stamps in shared memory (every timed shape); elsewhere they raise."""
+    _call(PROBES[phase], idx, val, b, kind, z, table, gbar, perm, z_out,
+          table_out, acc, last, eta=eta, c=c, vr=vr)
+
+
+def serial_floor(threads: int, T: int) -> torch.Tensor:
+    """Launch the probe ``lazy_epoch_floor`` on the current CUDA device: T
+    steps of the step's serial chain alone (shuffle tree, block barriers,
+    the logistic residual, a store) in one block of ``threads``, for
+    timing the floor per step. Not counted. Returns its output."""
+    out = torch.empty(2 * threads, dtype=torch.float64, device="cuda")
+    lib = _load()
+    err = lib.lazy_epoch_floor(out.data_ptr(), threads, T,
+                               torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"lazy_epoch_floor: launch failed: "
+                           f"{lib.lazy_epoch_error_string(err).decode()}")
+    return out
+
+
+def _call(stop, idx, val, b, kind, z, table, gbar, perm, z_out, table_out,
+          acc, last, *, eta, c, vr):
     n, width = idx.shape
     plan = launch_plan(width)
     loss, delta = _loss_code(kind)
     lib = _load()
     err = lib.lazy_epoch_f64(
-        idx.data_ptr(), val.data_ptr(), b.data_ptr(), perm.data_ptr(),
+        stop, idx.data_ptr(), val.data_ptr(), b.data_ptr(), perm.data_ptr(),
         z.data_ptr(), table.data_ptr(), gbar.data_ptr(), z_out.data_ptr(),
         table_out.data_ptr(), acc.data_ptr(), last.data_ptr(), n, width,
         z.shape[0], perm.shape[0], float(eta), float(c), int(bool(vr)),
@@ -203,4 +251,3 @@ def _launch(idx, val, b, kind, z, table, gbar, perm, z_out, table_out, acc,
     if err:
         raise RuntimeError(f"lazy_epoch: launch failed: "
                            f"{lib.lazy_epoch_error_string(err).decode()}")
-    launches += 1

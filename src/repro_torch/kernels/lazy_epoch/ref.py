@@ -80,7 +80,12 @@ def lazy_epoch_ref(idx, val, b, kind: str, z, table, gbar, perm, *,
 
     ``vr=True`` is the CentralVR epoch (correction from the table, drift
     ``-eta*gbar`` on every coordinate a step); ``vr=False`` the plain-SGD
-    init epoch (no correction, no drift). Step t visits i = perm[t]:
+    init epoch (no correction, no drift). Step t visits i = perm[t], whose
+    entries of value 0 (``sparsify``'s padding) it skips, as the kernel
+    does: J are the row's other coordinates. A value-0 entry applies
+    exactly one drift step psi to its coordinate, which the next catch-up
+    applies in closed form, so the skip changes the result by rounding
+    only (the reference's scan, which updates them, agrees to 1e-10):
 
         zJ = lazy_apply(z[J], t - last[J], drift[J], c)   (catch the row up)
         s  = l'(val[i] . zJ; b[i])
@@ -98,8 +103,9 @@ def lazy_epoch_ref(idx, val, b, kind: str, z, table, gbar, perm, *,
     acc = torch.zeros_like(z)
     T = perm.shape[0]
     for t, i in enumerate(perm.tolist()):
-        J = idx[i].long()
-        w = val[i]
+        live = val[i] != 0
+        J = idx[i][live].long()
+        w = val[i][live]
         zJ = lazy_apply(z[J], t - last[J], drift[J], c)
         s_new = residual(w @ zJ, b[i], kind)
         if vr:

@@ -49,6 +49,84 @@ def _sparse(kind="ridge", n=48, d=40, nnz=3, seed=7):
     return prob, convert.to_problem(prob, device="cpu")
 
 
+def _varying(kind="ridge", n=48, d=40, nnz=6, seed=7):
+    """The reference's sparse problem with a seeded random tail of each
+    row's nonzeros zeroed before ``sparsify`` (rows of varying length, so
+    padding entries of value 0; row 0 all zero), and the port's copy."""
+    prob = jlazy.make_sparse_data(jax.random.PRNGKey(seed), n, d, nnz,
+                                  kind=kind)
+    A = np.array(prob.A)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        nz = np.flatnonzero(A[i])
+        A[i, nz[rng.integers(0, len(nz) + 1):]] = 0.0
+    A[0] = 0.0
+    jp = JProblem(jnp.asarray(A), prob.b, prob.lam, prob.kind)
+    return jp, convert.to_problem(jp, device="cpu")
+
+
+def _epoch_pair(jp, tp, perm=None, *, vr, l1, seed=5):
+    """One epoch of the reference's scan and of the port's plain version
+    (through the wrapper, on CPU tensors: no launch) from the same seeded
+    state; ``perm`` None draws a permutation after it."""
+    jsp, tsp = jlazy.sparsify(jp), lazy.sparsify(tp)
+    rng = np.random.default_rng(seed)
+    z = 0.1 * rng.standard_normal(jp.d)
+    table = 0.3 * rng.standard_normal(jp.n)
+    gbar = 0.01 * rng.standard_normal(jp.d)
+    if perm is None:
+        perm = rng.permutation(jp.n)
+    eta = 0.05
+    want = jlazy._lazy_epoch(jsp.idx, jsp.val, jsp.b, jp.kind, jnp.asarray(z),
+                             jnp.asarray(table), jnp.asarray(gbar), eta,
+                             jnp.asarray(eta * l1), jnp.asarray(perm), vr=vr)
+    before = lazy_kernel.launches
+    have = lazy_kernel.lazy_epoch(
+        tsp.idx, tsp.val, tsp.b, tp.kind, torch.from_numpy(z),
+        torch.from_numpy(table), torch.from_numpy(gbar),
+        torch.from_numpy(np.asarray(perm)), eta=eta, c=eta * l1, vr=vr)
+    assert lazy_kernel.launches == before       # CPU: the plain version
+    return have, want, tsp
+
+
+def _run_sparse_triple(jp, tp, prox, epochs):
+    """run_sparse of the reference and of the port on the same draws, and
+    the port's dense driver: the port's state and rels within the
+    tolerance of both. Returns the three grad_evals."""
+    orders = convert.centralvr_orders(jax.random, KEY, jp.n, epochs)
+    st_w, rels_w, ge_w = jlazy.run_sparse(jp, eta=0.05, epochs=epochs,
+                                          key=KEY, prox=prox)
+    st, rels, ge = lazy.run_sparse(tp, eta=0.05, epochs=epochs,
+                                   orders=orders, prox=prox)
+    st_d, rels_d, ge_d = centralvr.run(tp, eta=0.05, epochs=epochs,
+                                       orders=orders, prox=prox)
+    for want in ((st_w.x, st_w.table, st_w.gbar, rels_w),
+                 (st_d.x, st_d.table, st_d.gbar, rels_d)):
+        for h, w in zip((st.x, st.table, st.gbar, rels), want):
+            _close(h, w)
+    return st, ge, ge_w, ge_d
+
+
+def _solve_sparse_pair(jp, tp):
+    """``sampling="sparse"`` through ``solve`` on the same problem and
+    draws as the reference, and against the port's dense route."""
+    spec = dict(algo="centralvr", sampling="sparse", prox="l1:0.02",
+                rounds=3, seed=2)
+    want = repro.solve(repro.RunSpec(**spec), jp)
+    orders = convert.centralvr_orders(jax.random, jax.random.PRNGKey(2),
+                                      jp.n, 3)
+    have = repro_torch.solve(repro_torch.RunSpec(**spec), tp, device="cpu",
+                             orders=orders)
+    dense = repro_torch.solve(repro_torch.RunSpec(
+        **dict(spec, sampling="permutation")), tp, device="cpu",
+        orders=orders)
+    for w in (want, dense):
+        _close(have.x, w.x)
+        _close(have.rels, w.rels)
+    assert have.launches == {"vr_update": 0, "vr_epoch": 0, "lazy_epoch": 0}
+    return spec, want, have
+
+
 def _ragged(seed=3, n=30, d=25):
     """Rows of different supports (some empty), for the packing."""
     rng = np.random.default_rng(seed)
@@ -183,42 +261,85 @@ def test_lazy_apply_matches_the_reference(case):
 @pytest.mark.parametrize("kind", ["ridge", "logistic"])
 @pytest.mark.parametrize("vr", [True, False])
 def test_lazy_epoch_ref_matches_the_reference_scan(vr, kind, l1):
-    jp, tp = _sparse(kind)
-    jsp, tsp = jlazy.sparsify(jp), lazy.sparsify(tp)
-    rng = np.random.default_rng(5)
-    z = 0.1 * rng.standard_normal(jp.d)
-    table = 0.3 * rng.standard_normal(jp.n)
-    gbar = 0.01 * rng.standard_normal(jp.d)
-    perm = rng.permutation(jp.n)
-    eta = 0.05
-    want = jlazy._lazy_epoch(jsp.idx, jsp.val, jsp.b, kind, jnp.asarray(z),
-                             jnp.asarray(table), jnp.asarray(gbar), eta,
-                             jnp.asarray(eta * l1), jnp.asarray(perm), vr=vr)
-    before = lazy_kernel.launches
-    have = lazy_kernel.lazy_epoch(
-        tsp.idx, tsp.val, tsp.b, kind, torch.from_numpy(z),
-        torch.from_numpy(table), torch.from_numpy(gbar),
-        torch.from_numpy(perm), eta=eta, c=eta * l1, vr=vr)
-    assert lazy_kernel.launches == before       # CPU: the plain version
+    have, want, _ = _epoch_pair(*_sparse(kind), vr=vr, l1=l1)
+    for h, w in zip(have, want):
+        _close(h, w)
+
+
+@pytest.mark.parametrize("l1", [0.0, 0.02])
+@pytest.mark.parametrize("kind", ["ridge", "logistic"])
+@pytest.mark.parametrize("vr", [True, False])
+def test_lazy_epoch_ref_skips_padding_and_matches_the_reference(vr, kind,
+                                                                l1):
+    """Rows of varying length: the plain version skips the value-0
+    entries, the reference's scan updates them; one drift step each,
+    which the next catch-up applies in closed form, so they agree to
+    rounding."""
+    jp, tp = _varying(kind)
+    perm = np.random.default_rng(5).permutation(jp.n)
+    have, want, tsp = _epoch_pair(jp, tp, perm, vr=vr, l1=l1)
+    assert 0 < int((tsp.val == 0).sum()) < tsp.val.numel() // 2
+    assert not tsp.val[0].any()                 # the all-zero row
+    for h, w in zip(have, want):
+        _close(h, w)
+
+
+def test_lazy_epoch_ref_on_an_all_zero_row():
+    """A row whose values are all zero: its margin is 0, so its table
+    entry is l'(0; b), and it moves no coordinate."""
+    jp, tp = _varying("logistic")
+    perm = np.concatenate([[0], np.random.default_rng(6).permutation(
+        np.arange(1, jp.n))])
+    have, want, tsp = _epoch_pair(jp, tp, perm, vr=True, l1=0.02)
+    for h, w in zip(have, want):
+        _close(h, w)
+    assert float(have[1][0]) == -0.5 * float(tsp.b[0])     # l'(0; b)
+
+
+@pytest.mark.parametrize("vr", [True, False])
+@pytest.mark.parametrize("varying", [False, True])
+def test_lazy_epoch_ref_with_a_row_visited_twice_in_a_row(varying, vr):
+    """perm[t+1] == perm[t] (and a row again two steps later): the second
+    visit reads the first one's values and table entry."""
+    jp, tp = _varying() if varying else _sparse()
+    perm = np.random.default_rng(8).permutation(jp.n)
+    perm[1] = perm[0]
+    perm[5], perm[7] = perm[4], perm[5]
+    have, want, _ = _epoch_pair(jp, tp, perm, vr=vr, l1=0.02)
+    for h, w in zip(have, want):
+        _close(h, w)
+
+
+@pytest.mark.parametrize("kind", ["ridge", "logistic"])
+@pytest.mark.parametrize("varying", [False, True])
+def test_lazy_epoch_ref_when_consecutive_rows_share_most_coordinates(
+        varying, kind):
+    """d = 2 x width: consecutive rows share half their coordinates, so
+    most of a step's catch-ups start from the last step's values."""
+    shape = dict(kind=kind, n=40, d=12, nnz=6)
+    jp, tp = _varying(**shape) if varying else _sparse(**shape)
+    perm = np.random.default_rng(9).permutation(jp.n)
+    have, want, _ = _epoch_pair(jp, tp, perm, vr=True, l1=0.02)
     for h, w in zip(have, want):
         _close(h, w)
 
 
 @pytest.mark.parametrize("prox", [None, "l1:0.02"])
 @pytest.mark.parametrize("kind", ["ridge", "logistic"])
+def test_run_sparse_on_rows_of_varying_length(kind, prox):
+    """run_sparse on rows of varying length (an all-zero row among them)
+    against the reference's and the dense driver's."""
+    _run_sparse_triple(*_varying(kind), prox, 3)
+
+
+def test_solve_sparse_on_rows_of_varying_length():
+    _solve_sparse_pair(*_varying("logistic"))
+
+
+@pytest.mark.parametrize("prox", [None, "l1:0.02"])
+@pytest.mark.parametrize("kind", ["ridge", "logistic"])
 def test_run_sparse_matches_the_reference_and_the_dense_driver(kind, prox):
-    jp, tp = _sparse(kind)
-    orders = convert.centralvr_orders(jax.random, KEY, jp.n, 4)
-    st_w, rels_w, ge_w = jlazy.run_sparse(jp, eta=0.05, epochs=4, key=KEY,
-                                          prox=prox)
-    st, rels, ge = lazy.run_sparse(tp, eta=0.05, epochs=4, orders=orders,
-                                   prox=prox)
-    st_d, rels_d, ge_d = centralvr.run(tp, eta=0.05, epochs=4,
-                                       orders=orders, prox=prox)
-    for want in ((st_w.x, st_w.table, st_w.gbar, rels_w),
-                 (st_d.x, st_d.table, st_d.gbar, rels_d)):
-        for h, w in zip((st.x, st.table, st.gbar, rels), want):
-            _close(h, w)
+    st, ge, ge_w, ge_d = _run_sparse_triple(*_sparse(kind), prox, 4)
     np.testing.assert_array_equal(ge, np.asarray(ge_w))
     np.testing.assert_array_equal(ge, ge_d)
     if prox is not None:
@@ -246,21 +367,8 @@ def test_solve_sparse_matches_the_reference():
     """The acceptance pin: ``sampling="sparse"`` through ``solve`` on the
     same problem and draws, and against the port's dense route."""
     jp, tp = _sparse()
-    spec = dict(algo="centralvr", sampling="sparse", prox="l1:0.02",
-                rounds=3, seed=2)
-    want = repro.solve(repro.RunSpec(**spec), jp)
-    orders = convert.centralvr_orders(jax.random, jax.random.PRNGKey(2),
-                                      jp.n, 3)
-    have = repro_torch.solve(repro_torch.RunSpec(**spec), tp, device="cpu",
-                             orders=orders)
-    dense = repro_torch.solve(repro_torch.RunSpec(
-        **dict(spec, sampling="permutation")), tp, device="cpu",
-        orders=orders)
-    for w in (want, dense):
-        _close(have.x, w.x)
-        _close(have.rels, w.rels)
+    spec, want, have = _solve_sparse_pair(jp, tp)
     np.testing.assert_array_equal(have.grad_evals, want.grad_evals)
-    assert have.launches == {"vr_update": 0, "vr_epoch": 0, "lazy_epoch": 0}
     assert have.device == "cpu"
     own = repro_torch.solve(repro_torch.RunSpec(**spec), tp, device="cpu")
     assert np.isfinite(own.rels).all() and own.rels[-1] < own.rels[0]
