@@ -75,6 +75,31 @@ Phases, each of which raises on failure:
      fused and unfused within 1e-9; every rel finite, the last below the
      first for each VR algorithm. Prints each run's rels, gradient
      evaluations per round, inner steps/s and launches;
+  4c. the spmd backend (``core/spmd.py``, ``launch/mesh.py``): the ranks
+     are processes started by ``launch.mesh.spawn_workers`` (the kernels
+     built here first), each running its worker on the card through the
+     same entry points with ``backend="spmd"``, against the vmap run
+     here on the same draws. §6.2's ``dist-toy-logistic`` over 8 ranks
+     with the transport "auto" picks (gloo on one card, staged through
+     host memory; NCCL refuses two ranks on one device), every VR run
+     fused: CentralVR-Sync (10 rounds), CentralVR-Async round-robin and
+     with speeds 1..8 (2 rounds), D-SVRG (tau 2*ns, 3 rounds), stale
+     D-SAGA (tau 100, 20 rounds), distributed SGD, EASGD and PS-SVRG (2
+     rounds each); CentralVR-Sync over NCCL at world = the card count
+     (1 here, so p = 1) and Algorithm 1 on ``millionsong`` in a group of
+     one rank; Mamba2-130M at full width and depth, W = 2, fused, over 2
+     ranks sharing the card, 2 epochs from the seed of the vmap W = 2 run
+     made here first. Gates: every rank on the card; each rank launched
+     vr_epoch exactly once per fused epoch call of its own worker (the
+     init epoch and each round, each event it owns) and nothing else,
+     the LM ranks a W = 1 step's launches; x and rels bit-identical
+     across ranks and within 1e-9 of the vmap run's (relative), finite,
+     the last below the first for the VR algorithms; the LM's losses and
+     2**20 sampled params within ``LM_TOL`` (rtol 3e-5, atol 1e-6) of
+     the vmap run's. ``[spmd]`` lines give the transport, world, the
+     ranks' devices, walls and inner steps/s beside the vmap run's and
+     the bytes each rank's collectives carried, for the record: on one
+     card they measure time-slicing and host staging, not scaling;
   5b. the sparse lazy driver (``sampling="sparse"``): (a) ``lazy_epoch``
      against its plain version, one epoch per case, every output within
      1e-10 of its largest magnitude: vr on and off x logistic and ridge
@@ -132,7 +157,10 @@ Phases, each of which raises on failure:
      the LM shapes and for vr_epoch), its bound on this card, the time of
      the one PyTorch call that computes the same function where there is
      one (``F.rms_norm``, ``F.scaled_dot_product_attention``; timed as a
-     yardstick only; none for K1, vr_epoch, lazy_epoch and K4) and its
+     yardstick only; none for K1, vr_epoch, lazy_epoch and K4; K2 and
+     ``F.rms_norm`` with a cold L2: inputs taken in turn from enough
+     buffers, and every output kept, that each call reads and writes
+     device memory) and its
      largest error
      against the plain version; K1 at the LM step's (1, 1,556,113,920)
      float32, also at the reduced shape and Mamba2-130M's (2,
@@ -159,7 +187,8 @@ prints the device time, the device busy share against the same run
 untraced, the kernels that take the device time, and the LM backward's
 device time by autograd node.
 
-``--sparse`` runs only the device phase, the build and phase 5b.
+``--sparse`` runs only the device phase, the build and phase 5b;
+``--spmd`` only the device phase, the build and phase 4c.
 
 ``--rates`` runs only the device phase, vr_epoch's device time at each
 convex path's shape, lazy_epoch's per epoch through its public wrapper
@@ -178,6 +207,7 @@ are full float32 (the convex path runs in float64, the LM in bfloat16).
 Without a CUDA device it exits with status 1 and prints no result. The
 last line of its output is ``{"ok": true, "device": {...}}``.
 """
+import itertools
 import json
 import subprocess
 import sys
@@ -213,6 +243,7 @@ VR_STREAMS = 7
 ROUNDS = 10
 # RMSNorm: x*x, the sum, *r, *scale per element (float32 arithmetic)
 RMS_OPS_PER_ELEMENT = 4
+L2_BYTES = 50 * 2**20           # H100 L2
 LM_EPOCHS = 2
 LM_TIMING_EPOCHS = 10           # more epochs after the agreement check, timed
 LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
@@ -1391,6 +1422,392 @@ def phase_lm(torch, kernels):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 4c: the spmd backend, one worker per rank over torch.distributed
+# ---------------------------------------------------------------------------
+
+SPMD_TOL = 1e-9                 # against the vmap fused run, relative
+SPMD_PS_SVRG_N = 125            # PS-SVRG's n per worker in phase 4c
+SPMD_PROBE_CALLS = 100          # all-reduces timed after the convex runs
+LM_TOL = dict(rtol=3e-5, atol=1e-6)   # the CPU tests' LM tolerance
+
+
+def kernel_modules():
+    """The wrappers of the six kernels, by name (each with its count)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.vr_update import epoch as vr_epoch
+    from repro_torch.kernels.vr_update import kernel as vr_kernel
+    return {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
+            "lazy_epoch": lazy_kernel, "rmsnorm": rms_kernel,
+            "flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
+
+
+def _numpy(draws):
+    """A run's draws as numpy (tuples kept, None kept), for a rank."""
+    if isinstance(draws, tuple):
+        return tuple(_numpy(d) for d in draws)
+    return None if draws is None else draws.cpu().numpy()
+
+
+def spmd_convex_runs(torch):
+    """Phase 4c's convex runs on §6.2's ``dist-toy-logistic`` (p 8, 5000 x
+    1000 per worker, float64): Algorithm 2 with phase 4's rounds, the
+    others with phase 5's, every VR run fused. PS-SVRG's server steps
+    (2*ns a round) each wait for an all-reduce over the 8 ranks, ~22 ms
+    over gloo on an H100's host (the ``[spmd]`` all-reduce probe), so its
+    run cuts n per worker to ``SPMD_PS_SVRG_N``. Draws made once here. Each:
+    (label, config, spec, draws, vr_epoch launches of each rank (one per
+    fused epoch call: the init epoch, each round, each event the rank
+    owns), inner steps, VR algorithm)."""
+    import dataclasses
+
+    from repro_torch.configs.paper_convex import PRESETS
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import distributed as ds
+    from repro_torch.core import runtime
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    net = PRESETS["dist-toy-logistic"]
+    p, ns = net.workers, net.n
+    speeds = tuple(1.0 + i for i in range(p))
+    blocks = max(ns // 16, 1)
+    ps_net = dataclasses.replace(net, n=SPMD_PS_SVRG_N)
+
+    def owned(rounds, sp=None):
+        sched = runtime.event_schedule(p, rounds, sp)
+        return [int((sched == r).sum()) for r in range(p)]
+
+    return [
+        ("centralvr_sync", net,
+         dict(algo="centralvr_sync", p=p, rounds=ROUNDS, fused=True),
+         ds.draw_sync_orders(gen, p, ns, ROUNDS), [ROUNDS + 1] * p,
+         (ROUNDS + 1) * ns, True),
+        ("centralvr_async round-robin", net,
+         dict(algo="centralvr_async", p=p, rounds=2, fused=True),
+         ds.draw_async_orders(gen, p, ns, 2), [1 + k for k in owned(2)],
+         ns + 2 * p * ns, True),
+        ("centralvr_async speeds 1..8", net,
+         dict(algo="centralvr_async", p=p, rounds=2, speeds=speeds,
+              fused=True),
+         ds.draw_async_orders(gen, p, ns, 2),
+         [1 + k for k in owned(2, speeds)], ns + 2 * p * ns, True),
+        ("dsvrg (tau 2*ns)", net, dict(algo="dsvrg", p=p, rounds=3,
+                                       fused=True),
+         ds.draw_dsvrg_orders(gen, p, ns, 3, 2 * ns), [3] * p, 3 * 2 * ns,
+         True),
+        ("dsaga stale (tau 100)", net,
+         dict(algo="dsaga", p=p, rounds=20, tau=100, fetch="stale",
+              fused=True),
+         ds.draw_dsaga_orders(gen, p, ns, 20, 100), owned(20),
+         20 * p * 100, True),
+        ("dist_sgd (tau ns)", net, dict(algo="dist_sgd", p=p, rounds=2),
+         bl.draw_dist_sgd_orders(gen, p, ns, 2, ns), [0] * p, 2 * ns, False),
+        ("easgd (tau 16)", net, dict(algo="easgd", p=p, rounds=2),
+         bl.draw_easgd_orders(gen, p, ns, 2, 16), [0] * p, 2 * blocks * 16,
+         False),
+        (f"ps_svrg (n {SPMD_PS_SVRG_N} per worker, 2*ns steps)", ps_net,
+         dict(algo="ps_svrg", p=p, rounds=2),
+         bl.draw_ps_svrg_orders(gen, p, SPMD_PS_SVRG_N, 2), [0] * p,
+         2 * 2 * SPMD_PS_SVRG_N, False),
+    ]
+
+
+def spmd_world_runs(torch, world):
+    """The NCCL run, CentralVR-Sync on ``dist-toy-logistic``'s workers cut
+    to ``world`` (the card count), 10 rounds fused; and, in a group of one
+    rank, Algorithm 1 on ``millionsong`` (10 epochs, fused)."""
+    import dataclasses
+
+    from repro_torch.configs.paper_convex import PRESETS
+    from repro_torch.core import centralvr
+    from repro_torch.core import distributed as ds
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    net, ms = PRESETS["dist-toy-logistic"], PRESETS["millionsong"]
+    ns, n = net.n, ms.n
+    sync = (f"centralvr_sync p={world} over nccl",
+            dataclasses.replace(net, workers=world),
+            dict(algo="centralvr_sync", p=world, rounds=ROUNDS, fused=True),
+            ds.draw_sync_orders(gen, world, ns, ROUNDS),
+            [ROUNDS + 1] * world, (ROUNDS + 1) * ns, True)
+    alg1 = ("centralvr millionsong (world 1)", ms,
+            dict(algo="centralvr", rounds=ROUNDS, fused=True),
+            centralvr.draw_orders(gen, n, ROUNDS), [ROUNDS + 1],
+            (ROUNDS + 1) * n, True)
+    return sync, alg1
+
+
+def spmd_rank_convex(group, runs):
+    """In a rank: every run through ``solve(backend="spmd")`` on its
+    config, each count set to 0 just before and read just after, the
+    ranks lined up by a barrier before each."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import RunSpec, solve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = kernel_modules()
+    out = []
+    for label, cfg, spec, draws, *_ in runs:
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = solve(RunSpec(backend="spmd", **spec), cfg, orders=draws,
+                    group=group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out.append(dict(label=label, x=res.x, rels=res.rels,
+                        counts=read_counts(kernels), launches=res.launches,
+                        wall_s=wall, device=str(group.device),
+                        device_name=res.device, rank=group.rank,
+                        world=group.world, transport=group.transport,
+                        carried_bytes=res.comms["carried_bytes"],
+                        collectives=res.comms["collectives"]))
+    # the latency of one collective as the runs make it: an all-reduce
+    # of a (1000,) float64 vector on the card (PS-SVRG's a server step)
+    from repro_torch.core import spmd
+    t = torch.ones(1000, dtype=torch.float64, device=group.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(SPMD_PROBE_CALLS):
+        spmd.psum_(t, group)
+    torch.cuda.synchronize()
+    out.append(dict(label="all-reduce probe",
+                    ms=(time.perf_counter() - t0) * 1e3 / SPMD_PROBE_CALLS))
+    return out
+
+
+def spmd_vmap(torch, runs, kernels):
+    """The parent's vmap run of each spmd run, on the same draws: (x,
+    rels, wall)."""
+    from repro_torch import RunSpec, solve
+
+    out = []
+    for label, cfg, spec, draws, *_ in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve(RunSpec(**spec), cfg, orders=draws)
+        torch.cuda.synchronize()
+        out.append(dict(x=res.x, rels=res.rels,
+                        wall_s=time.perf_counter() - t0))
+    return out
+
+
+def spmd_check(torch, runs, vmap, ranks):
+    """Phase 4c's gates on one group's runs: each rank on the card;
+    vr_epoch launched by each rank exactly once per fused epoch call and
+    nothing else; x and rels bit-identical across ranks, within 1e-9 of
+    the vmap run (relative), finite, falling for the VR algorithms.
+    Prints the ``[spmd]`` lines; returns the runs' records."""
+    import numpy as np
+
+    name = torch.cuda.get_device_name(0)
+    recs = []
+    for i, (label, _, spec, _, launches, steps, vr) in enumerate(runs):
+        mine = [r[i] for r in ranks]
+        first, v = mine[0], vmap[i]
+        for r, rec in enumerate(mine):
+            want = dict.fromkeys(rec["counts"], 0)
+            want["vr_epoch"] = launches[r]
+            if rec["counts"] != want:
+                raise AssertionError(f"[spmd] {label}: rank {r} launched "
+                                     f"{rec['counts']}, expected {want}")
+            if not (rec["device"].startswith("cuda")
+                    and rec["device_name"] == name):
+                raise AssertionError(f"[spmd] {label}: rank {r} ran on "
+                                     f"{rec['device']} ({rec['device_name']})")
+            if not (np.array_equal(rec["x"], first["x"])
+                    and np.array_equal(rec["rels"], first["rels"])):
+                raise AssertionError(f"[spmd] {label}: rank {r}'s x or rels "
+                                     "differ from rank 0's")
+        scale = max(float(np.abs(v["x"]).max()), 1e-300)
+        dx = float(np.abs(first["x"] - v["x"]).max()) / scale
+        drel = float((np.abs(first["rels"] - v["rels"])
+                      / np.abs(v["rels"])).max())
+        rels = first["rels"]
+        wall = max(r["wall_s"] for r in mine)
+        log(f"[spmd] {label}: {first['transport']}, world "
+            f"{first['world']}, devices "
+            f"{sorted({r['device'] for r in mine})}; rels "
+            f"{[float(x) for x in rels]}")
+        log(f"[spmd] {label}: wall {wall!r} s ({steps / wall!r} inner "
+            f"steps/s) against the vmap run's {v['wall_s']!r} s "
+            f"({steps / v['wall_s']!r}); vr_epoch launches per rank "
+            f"{launches}; carried {first['carried_bytes']} bytes in "
+            f"{first['collectives']} collectives a rank; |x - vmap| "
+            f"{dx!r}, |rels - vmap| {drel!r} (relative)")
+        if not np.isfinite(rels).all() or (vr and not rels[-1] < rels[0]):
+            raise AssertionError(f"[spmd] {label}: rels {rels}")
+        if not (dx <= SPMD_TOL and drel <= SPMD_TOL):
+            raise AssertionError(f"[spmd] {label}: {dx} / {drel} from the "
+                                 "vmap run")
+        recs.append(dict(label=label, transport=first["transport"],
+                         world=first["world"], wall_s=wall,
+                         vmap_wall_s=v["wall_s"], inner_steps=steps,
+                         launches_per_rank=launches,
+                         carried_bytes=first["carried_bytes"],
+                         collectives=first["collectives"], max_dx=dx,
+                         max_drel=drel))
+    return recs
+
+
+def spmd_rank_lm(group, sample):
+    """In a rank: Mamba2-130M at full width and depth, its worker of W = 2
+    through ``make_epoch_runner(backend="spmd", fused=True)``, 2 epochs
+    from the seeded state (``place_train_state``), counts set to 0 just
+    before."""
+    import torch
+
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (cfg, tcfg), _ = mamba_configs()
+    run, meta = tstep.make_epoch_runner(cfg, tcfg, 2, backend="spmd",
+                                        fused=True, group=group)
+    state = tstep.place_train_state(
+        tstep.init_train_state(cfg, tcfg, 2, device=group.device), group)
+    torch.cuda.empty_cache()
+    kernels = kernel_modules()
+    carried0 = group.carried_bytes
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    losses, epoch_s = [], []
+    for _ in range(LM_EPOCHS):
+        t0 = time.perf_counter()
+        state, ls = run(state)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        losses.append(ls)
+    return dict(losses=torch.cat(losses).double().cpu(),
+                p1=state.params[0, torch.as_tensor(sample,
+                                                   device=group.device)]
+                .double().cpu(),
+                counts=read_counts(kernels), epoch_s=epoch_s,
+                steps=LM_EPOCHS * meta["comm_every"], accum=meta["accum"],
+                shape=list(state.params.shape), device=str(group.device),
+                transport=group.transport,
+                carried_bytes=group.carried_bytes - carried0)
+
+
+def spmd_lm(torch, mesh):
+    """Mamba2-130M W = 2 over 2 ranks sharing the card against the vmap
+    W = 2 run from the same seed (its 2 epochs run here first, then
+    freed): losses and the sampled params within LM_TOL, bit-identical
+    across ranks, launches per step as a W = 1 step's."""
+    import gc
+
+    from repro_torch.models import model
+    from repro_torch.train import step as tstep
+
+    (cfg, tcfg), _ = mamba_configs()
+    n = model.ParamLayout(cfg).n
+    sample = torch.randint(0, n, (min(LM_SAMPLES, n),),
+                           generator=torch.Generator().manual_seed(0))
+    run, meta = tstep.make_epoch_runner(cfg, tcfg, 2, fused=True)
+    state = tstep.init_train_state(cfg, tcfg, 2)
+    losses, vmap_s = [], []
+    for _ in range(LM_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ls = run(state)
+        torch.cuda.synchronize()
+        vmap_s.append(time.perf_counter() - t0)
+        losses.append(ls)
+    want_losses = torch.cat(losses).double().cpu()
+    want_p1 = state.params[:, sample.to(state.params.device)].double().cpu()
+    del state, run, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = mesh.spawn_workers(2, spmd_rank_lm, sample.numpy())
+    label = "mamba2-130m L=24 W=2 S=2048"
+    steps, A = ranks[0]["steps"], ranks[0]["accum"]
+    want = {k: v * steps for k, v in expected_launches(cfg, A, 1).items()}
+    for r, rec in enumerate(ranks):
+        if rec["counts"] != want:
+            raise AssertionError(f"[spmd] {label}: rank {r} launched "
+                                 f"{rec['counts']}, expected {want}")
+        if not (rec["device"].startswith("cuda") and rec["shape"][0] == 1):
+            raise AssertionError(f"[spmd] {label}: rank {r} on "
+                                 f"{rec['device']}, params {rec['shape']}")
+        if not (torch.equal(rec["losses"], ranks[0]["losses"])
+                and torch.equal(rec["p1"], ranks[0]["p1"])):
+            raise AssertionError(f"[spmd] {label}: rank {r} differs from "
+                                 "rank 0")
+        torch.testing.assert_close(rec["losses"], want_losses, **LM_TOL)
+        for w in range(2):
+            torch.testing.assert_close(rec["p1"], want_p1[w], **LM_TOL)
+    got = ranks[0]
+    loss_err = float(((got["losses"] - want_losses).abs()
+                      / want_losses.abs()).max())
+    p_err = float((got["p1"] - want_p1[0]).abs().max())
+    log(f"[spmd] {label}: {got['transport']}, world 2, devices "
+        f"{sorted({r['device'] for r in ranks})}; losses "
+        f"{got['losses'].tolist()}; max relative loss difference from the "
+        f"vmap run {loss_err!r}, sampled params {p_err!r} (absolute)")
+    log(f"[spmd] {label}: epochs {[r['epoch_s'] for r in ranks]} s by rank "
+        f"against the vmap run's {vmap_s} s; launches per step "
+        f"{ {k: v / steps for k, v in got['counts'].items()} }; carried "
+        f"{got['carried_bytes']} bytes a rank")
+    return dict(label=label, epoch_s=[r["epoch_s"] for r in ranks],
+                vmap_epoch_s=vmap_s, loss_err=loss_err, param_err=p_err,
+                counts=[r["counts"] for r in ranks],
+                carried_bytes=got["carried_bytes"])
+
+
+def phase_spmd(torch, kernels):
+    """Phase 4c: the spmd backend on the card. The convex runs over 8
+    ranks (``spawn_workers``; the transport that "auto" picks, gloo on
+    one card), Algorithm 1 in a group of one rank, CentralVR-Sync over
+    NCCL at world = the card count, and Mamba2-130M over 2 ranks; each
+    held against the vmap run in this process on the same draws."""
+    from repro_torch.launch import mesh
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    convex = spmd_convex_runs(torch)
+    sync, alg1 = spmd_world_runs(torch, world)
+    every = convex + [sync, alg1]
+    vmap = spmd_vmap(torch, every, kernels)
+    host = [r[:3] + (_numpy(r[3]),) + r[4:] for r in every]
+    torch.cuda.empty_cache()
+    p = convex[0][2]["p"]
+    rule = mesh.pick_transport("auto", torch.device("cuda", 0), p)
+    log(f"[spmd] transport rule: {rule} for {p} ranks on {world} card(s), "
+        f"nccl for {world} rank(s)")
+    ranks = mesh.spawn_workers(p, spmd_rank_convex, host[:len(convex)])
+    probe = [r.pop()["ms"] for r in ranks]
+    log(f"[spmd] one all-reduce of a (1000,) float64 vector over {p} ranks "
+        f"({ranks[0][0]['transport']}, staged through pinned host memory): "
+        f"{max(probe)!r} ms (slowest rank's mean over {SPMD_PROBE_CALLS})")
+    recs = spmd_check(torch, convex, vmap[:len(convex)], ranks)
+    if world == 1:
+        ranks = mesh.spawn_workers(1, spmd_rank_convex, host[-2:],
+                                   transport="nccl")
+        recs += spmd_check(torch, [sync, alg1], vmap[-2:],
+                           [r[:-1] for r in ranks])
+    else:
+        ranks = mesh.spawn_workers(world, spmd_rank_convex, host[-2:-1],
+                                   transport="nccl")
+        recs += spmd_check(torch, [sync], vmap[-2:-1],
+                           [r[:-1] for r in ranks])
+        ranks = mesh.spawn_workers(1, spmd_rank_convex, host[-1:])
+        recs += spmd_check(torch, [alg1], vmap[-1:], [r[:-1] for r in ranks])
+    recs.append(dict(label="all-reduce probe", world=p, ms=max(probe)))
+    lm = spmd_lm(torch, mesh)
+    launches = {"vr_epoch": sum(sum(r[4]) for r in every)}
+    for name, n in lm["counts"][0].items():
+        launches[name] = launches.get(name, 0) + n * len(lm["counts"])
+    log(f"[path] phase 4c (spmd) in {time.perf_counter() - t0:.1f} s")
+    return dict(runs=recs, lm=lm, launches=launches)
+
+
 def graph_ms(torch, fn, calls=200, replays=20):
     """Device time per call of ``fn``: ``calls`` back-to-back calls
     captured in one CUDA graph, replayed, timed with CUDA events."""
@@ -1429,23 +1846,43 @@ def eager_ms(torch, fn, calls=2000):
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
+def cold_graph_ms(torch, fn, xs, calls=200, replays=20):
+    """``graph_ms`` of ``fn(x)`` with x taken in turn from ``xs`` and every
+    call's output kept (a buffer of its own in the graph's pool): between
+    two uses of an input or an output buffer the calls move more than
+    the 50 MB L2 holds, so each call reads its input and writes its
+    output from and to device memory, as a layer of the model does."""
+    turn, outs = itertools.cycle(xs), []
+    ms = graph_ms(torch, lambda: outs.append(fn(next(turn))), calls, replays)
+    del outs
+    torch.cuda.empty_cache()
+    return ms
+
+
 def time_rmsnorm(torch, rms_kernel, rms_ref, rows=1024, d=3584):
-    x = torch.randn(rows, d, device="cuda").to(torch.bfloat16)
+    # enough inputs that a call's input was last read more than twice the
+    # L2's 50 MB ago, counting each call's input and output bytes
+    moved = 2 * rows * d * 2
+    xs = [torch.randn(rows, d, device="cuda").to(torch.bfloat16)
+          for _ in range(-(-2 * L2_BYTES // moved) + 1)]
     s = torch.randn(d, device="cuda").to(torch.bfloat16)
-    fns = {"ms": lambda: rms_kernel.rmsnorm(x, s),
-           "plain_ms": lambda: rms_ref.rmsnorm_ref(x, s),
-           "library_ms": lambda: torch.nn.functional.rms_norm(
+    fns = {"ms": lambda x: rms_kernel.rmsnorm(x, s),
+           "plain_ms": lambda x: rms_ref.rmsnorm_ref(x, s),
+           "library_ms": lambda x: torch.nn.functional.rms_norm(
                x, (d,), s, 1e-6)}
-    rec = {k: graph_ms(torch, f) for k, f in fns.items()}
-    rec["eager_ms"] = eager_ms(torch, fns["ms"])
+    rec = {k: cold_graph_ms(torch, f, xs) for k, f in fns.items()}
+    x = xs[0]
+    rec["eager_ms"] = eager_ms(torch, lambda: fns["ms"](x))
     # x read once, y written once (scale is d elements)
     bytes_s = (2 * rows * d + d) * 2 / PEAK_BYTES_S
     ops_s = RMS_OPS_PER_ELEMENT * rows * d / PEAK_FLOPS["float32"]
     rec.update(shape=[rows, d], dtype="bfloat16",
                bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="bytes" if bytes_s >= ops_s else "operations")
+    rec["inputs"] = len(xs)
     log(f"[time] rmsnorm {rec['shape']} bf16: kernel {rec['ms']!r} ms/launch "
-        f"(graph replay), {rec['eager_ms']!r} ms from Python; plain "
+        f"(graph replay, L2 cold: {len(xs)} inputs in turn, every output "
+        f"kept), {rec['eager_ms']!r} ms from Python (warm); plain "
         f"{rec['plain_ms']!r} ms; F.rms_norm {rec['library_ms']!r} ms; bound "
         f"{rec['bound_ms']!r} ms ({rec['bound_by']})")
     return rec
@@ -1903,25 +2340,29 @@ def main():
         return 0
     import numpy as np
 
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
-    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.rmsnorm import ref as rms_ref
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    from repro_torch.kernels.vr_update import epoch as vr_epoch
-    from repro_torch.kernels.vr_update import kernel as vr_kernel
     from repro_torch.kernels.vr_update import ref as vr_ref
     from repro_torch.models import model
     from repro_torch.prox import operators as proxops
 
-    kernels = {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
-               "lazy_epoch": lazy_kernel, "rmsnorm": rms_kernel,
-               "flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
+    kernels = kernel_modules()
+    vr_kernel, vr_epoch, rms_kernel, fa_kernel, ssd_kernel = (
+        kernels[k] for k in ("vr_update", "vr_epoch", "rmsnorm",
+                             "flash_attention", "ssd_scan"))
     t_start = time.perf_counter()
     smi = phase_device(torch)
     phase_build(kernels)
+    if "--spmd" in sys.argv[1:]:
+        spmd = phase_spmd(torch, kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"spmd": spmd}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sparse" in sys.argv[1:]:
         sparse = phase_sparse(torch, kernels)
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -1949,6 +2390,7 @@ def main():
     paths = phase_main_path(torch, kernels)
     paths += phase_family(torch, kernels)
     sparse = phase_sparse(torch, kernels)
+    spmd = phase_spmd(torch, kernels)
     lm = phase_lm(torch, kernels)
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
@@ -1976,6 +2418,8 @@ def main():
     for run in lm:
         for name, n in run["counts"].items():
             total[name] += n
+    for name, n in spmd["launches"].items():
+        total[name] += n
     mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
     lm_paths = [{k: r[k] for k in ("label", "counts", "per_step", "steps",
                                    "steps_s", "unfused_steps_s",
@@ -2013,7 +2457,8 @@ def main():
                                      "evals_per_round", "wall_s",
                                      "unfused_wall_s", "peak_bytes",
                                      "max_diff")}
-                  for p in paths]}, {
+                  for p in paths],
+        "spmd_paths": spmd["runs"]}, {
         "name": "lazy_epoch", "route": "cuda",
         "source": "src/repro_torch/kernels/lazy_epoch/csrc/lazy_epoch.cu",
         "replaces": "src/repro/prox/lazy.py:215 (the jitted scan "

@@ -181,17 +181,24 @@ def draw_dist_sgd_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
 
 def run_dist_sgd(sp: ShardedProblem, *, eta: float, rounds: int,
                  tau: int = 0, decay: float = 0.0, orders=None,
-                 seed: int = 0):
+                 seed: int = 0, backend: str = "vmap", group=None):
     """Distributed SGD: ``tau`` local steps (default one local epoch, ns)
     on every worker, then the average, with eta_r = eta /
     (1 + decay*r*tau)**0.5. Returns (x, per-round rels).
 
     ``orders``: the sample indices (rounds, p, tau)
     (``repro_torch.convert.dist_sgd_orders``); ``None`` draws them from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``. ``backend="spmd"``: one
+    worker per rank of ``group`` (``core/spmd.py``)."""
     from repro_torch.core import solver
-    solver.RunSpec(algo="dist_sgd", p=sp.p, eta=float(eta), rounds=rounds,
-                   tau=tau or None, decay=decay)
+    spec = solver.RunSpec(algo="dist_sgd", p=sp.p, eta=float(eta),
+                          rounds=rounds, backend=backend, tau=tau or None,
+                          decay=decay)
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_dist_sgd(sp, eta=eta, rounds=rounds, tau=tau,
+                                 decay=decay, orders=orders, seed=seed,
+                                 group=group)
     device = sp.A.device
     tau = tau or sp.ns
     if orders is None:
@@ -219,7 +226,7 @@ def draw_easgd_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
 
 def run_easgd(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 16,
               rho: float = 1.0, decay: float = 0.0, orders=None,
-              seed: int = 0):
+              seed: int = 0, backend: str = "vmap", group=None):
     """EASGD [36]: per round, every worker runs max(ns // tau, 1) blocks
     of ``tau`` local SGD steps, each followed by the elastic move against
     its view of the center,
@@ -230,10 +237,17 @@ def run_easgd(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 16,
 
     ``orders``: the sample indices (rounds, p, max(ns // tau, 1), tau)
     (``repro_torch.convert.easgd_orders``); ``None`` draws them from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``. ``backend="spmd"``: one
+    worker per rank of ``group`` (``core/spmd.py``)."""
     from repro_torch.core import solver
-    solver.RunSpec(algo="easgd", p=sp.p, eta=float(eta), rounds=rounds,
-                   tau=tau or None, decay=decay)
+    spec = solver.RunSpec(algo="easgd", p=sp.p, eta=float(eta),
+                          rounds=rounds, backend=backend, tau=tau or None,
+                          decay=decay)
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_easgd(sp, eta=eta, rounds=rounds, tau=tau, rho=rho,
+                              decay=decay, orders=orders, seed=seed,
+                              group=group)
     device = sp.A.device
     p = sp.p
     alpha = min(0.9 / p, eta * rho * tau)   # stability-capped elastic rate
@@ -272,7 +286,8 @@ def draw_ps_svrg_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
 
 
 def run_ps_svrg(sp: ShardedProblem, *, eta: float, rounds: int,
-                epoch_mult: int = 2, orders=None, seed: int = 0):
+                epoch_mult: int = 2, orders=None, seed: int = 0,
+                backend: str = "vmap", group=None):
     """Parameter-server SVRG [29]: per round a snapshot and its full
     gradient, then epoch_mult * ns server steps, each the average of one
     corrected gradient from every worker (synchronized arrivals,
@@ -280,9 +295,16 @@ def run_ps_svrg(sp: ShardedProblem, *, eta: float, rounds: int,
 
     ``orders``: the sample indices (rounds, epoch_mult * ns, p)
     (``repro_torch.convert.ps_svrg_orders``); ``None`` draws them from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``. ``backend="spmd"``: one
+    worker per rank of ``group`` (``core/spmd.py``)."""
     from repro_torch.core import solver
-    solver.RunSpec(algo="ps_svrg", p=sp.p, eta=float(eta), rounds=rounds)
+    spec = solver.RunSpec(algo="ps_svrg", p=sp.p, eta=float(eta),
+                          rounds=rounds, backend=backend)
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_ps_svrg(sp, eta=eta, rounds=rounds,
+                                epoch_mult=epoch_mult, orders=orders,
+                                seed=seed, group=group)
     device = sp.A.device
     inner = epoch_mult * sp.ns
     if orders is None:

@@ -117,8 +117,8 @@ def draw_orders(gen: torch.Generator, n: int, epochs: int,
 
 
 def run(prob: Problem, *, eta: float, epochs: int, orders=None,
-        seed: int = 0, sampling: str = "permutation", x0=None, fused=False,
-        prox=None):
+        seed: int = 0, sampling: str = "permutation", x0=None,
+        backend: str = "vmap", group=None, fused=False, prox=None):
     """Full Algorithm 1. Returns (final state, per-epoch relative grad
     norms as an (epochs,) tensor, gradient-evaluation counts): one
     evaluation per iteration plus the n of the initialization.
@@ -131,13 +131,21 @@ def run(prob: Problem, *, eta: float, epochs: int, orders=None,
     ``x0``: the start of the init epoch (zeros by default).
     ``sampling="sparse"`` runs the lazy sparse driver
     (``prox.lazy.run_sparse``) on the same permutations.
+    ``backend="spmd"``: Algorithm 1 is single-worker, so it runs on the
+    device of ``group``'s one rank (``spmd.run_centralvr``).
     Validation is a ``solver.RunSpec`` build, as in the reference.
     """
     from repro_torch.core import fused as fusedmod
     from repro_torch.core import solver
     spec = solver.RunSpec(algo="centralvr", eta=float(eta), rounds=epochs,
-                          sampling=sampling, fused=fused,
+                          backend=backend, sampling=sampling, fused=fused,
                           prox=proxops.canonical(prox))
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_centralvr(prob, eta=eta, epochs=epochs,
+                                  orders=orders, seed=seed,
+                                  sampling=sampling, x0=x0, group=group,
+                                  fused=fused, prox=spec.prox)
     device = prob.A.device
     if orders is None:
         orders = draw_orders(_generator(device, seed), prob.n, epochs,

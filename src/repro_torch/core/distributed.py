@@ -22,6 +22,11 @@ Randomness is data: the drivers take their draws (permutations or
 sample indices) as ``orders`` (the reference draws them with
 ``jax.random``), and draw them from a ``torch.Generator`` only when none
 are given.
+
+``backend="spmd"`` runs the same algorithms with one worker per process
+over ``torch.distributed`` (``core/spmd.py``); the asynchronous ones then
+run their schedule as concurrency waves, and instant-fetch D-SAGA, a
+serial chain of events, refuses it (``check_backend``).
 """
 from __future__ import annotations
 
@@ -261,7 +266,8 @@ def _as_orders(orders, shapes, device, high: int,
 
 
 def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
-             seed: int = 0, fused=False, prox=None):
+             seed: int = 0, backend: str = "vmap", group=None, fused=False,
+             prox=None):
     """Algorithm 2 end to end. Returns (final SyncState, per-round
     relative grad norms as a (rounds,) tensor).
 
@@ -269,12 +275,20 @@ def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
     (rounds, p, ns) — for instance the reference's draws
     (``repro_torch.convert.sync_orders``); ``None`` draws them from a
     ``torch.Generator`` seeded with ``seed`` on the problem's device.
-    Validation is a ``solver.RunSpec`` build, as in the reference."""
+    ``backend="spmd"`` runs one worker per rank of ``group`` (default:
+    the default process group's, ``launch.mesh.make_worker_mesh``;
+    ``core/spmd.py``). Validation is a ``solver.RunSpec`` build, as in
+    the reference."""
     from repro_torch.core import fused as fusedmod
     from repro_torch.core import solver
     spec = solver.RunSpec(algo="centralvr_sync", p=sp.p, eta=float(eta),
-                          rounds=rounds, fused=fused,
+                          rounds=rounds, backend=backend, fused=fused,
                           prox=proxops.canonical(prox))
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_sync(sp, eta=eta, rounds=rounds, orders=orders,
+                             seed=seed, group=group, fused=fused,
+                             prox=spec.prox)
     device = sp.A.device
     if orders is None:
         orders = draw_sync_orders(_generator(device, seed), sp.p, sp.ns,
@@ -383,7 +397,8 @@ def _run_events(sp: ShardedProblem, st, event, schedule, draws, eta: float,
 
 
 def run_async(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
-              seed: int = 0, speeds=None, fused=False, prox=None):
+              seed: int = 0, speeds=None, backend: str = "vmap", group=None,
+              fused=False, prox=None):
     """Algorithm 3: ``rounds`` epochs per worker, one event at a time in
     the order of ``runtime.event_schedule(p, rounds, speeds)``
     (round-robin by default: staleness p-1; faster workers fire
@@ -393,14 +408,21 @@ def run_async(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
     ``orders``: ``(init, per_event)`` permutations shaped (p, ns) and
     (rounds * p, ns), per-event rows in schedule order (the reference's
     draws: ``repro_torch.convert.async_orders``); ``None`` draws them from
-    a ``torch.Generator`` seeded with ``seed``."""
+    a ``torch.Generator`` seeded with ``seed``. ``backend="spmd"`` runs
+    the same schedule as concurrency waves, one worker per rank of
+    ``group`` (``core/spmd.py``)."""
     from repro_torch.core import fused as fusedmod
     from repro_torch.core import solver
     spec = solver.RunSpec(
         algo="centralvr_async", p=sp.p, eta=float(eta), rounds=rounds,
-        fused=fused,
+        backend=backend, fused=fused,
         speeds=None if speeds is None else tuple(float(s) for s in speeds),
         prox=proxops.canonical(prox))
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_async(sp, eta=eta, rounds=rounds, orders=orders,
+                              seed=seed, speeds=spec.speeds, group=group,
+                              fused=fused, prox=spec.prox)
     device = sp.A.device
     if orders is None:
         orders = draw_async_orders(_generator(device, seed), sp.p, sp.ns,
@@ -468,8 +490,8 @@ def draw_dsvrg_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
 
 
 def run_dsvrg(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 0,
-              orders=None, seed: int = 0, fused=False, prox=None,
-              snapshot: str = "last"):
+              orders=None, seed: int = 0, backend: str = "vmap", group=None,
+              fused=False, prox=None, snapshot: str = "last"):
     """Algorithm 4: ``tau`` local steps (default 2*ns) on every worker
     from the shared snapshot, gbar = the full gradient at the snapshot
     (the synchronization step), then the average of the workers' anchors
@@ -481,12 +503,19 @@ def run_dsvrg(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 0,
     for ``snapshot="rand"``, each round's anchor index (rounds,) in
     [0, tau) (else None) — the reference's draws:
     ``repro_torch.convert.dsvrg_orders``; ``None`` draws them from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``. ``backend="spmd"``: one
+    worker per rank of ``group`` (``core/spmd.py``)."""
     from repro_torch.core import fused as fusedmod
     from repro_torch.core import solver
     spec = solver.RunSpec(algo="dsvrg", p=sp.p, eta=float(eta),
-                          rounds=rounds, tau=tau or None, fused=fused,
-                          prox=proxops.canonical(prox), snapshot=snapshot)
+                          rounds=rounds, backend=backend, tau=tau or None,
+                          fused=fused, prox=proxops.canonical(prox),
+                          snapshot=snapshot)
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_dsvrg(sp, eta=eta, rounds=rounds, tau=tau,
+                              orders=orders, seed=seed, group=group,
+                              fused=fused, prox=spec.prox, snapshot=snapshot)
     device = sp.A.device
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = (fusedmod.make_params(spec.fused, eta, sp.lam, device,
@@ -640,7 +669,8 @@ def draw_dsaga_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
 def run_dsaga(sp: ShardedProblem, *, eta: float, rounds: int,
               tau: int = 100, literal_scaling: bool = False,
               fetch: str | None = None, speeds=None, orders=None,
-              seed: int = 0, fused=False, prox=None):
+              seed: int = 0, backend: str = "vmap", group=None, fused=False,
+              prox=None):
     """Algorithm 5: per event, a worker runs ``tau`` SAGA steps with its
     local table, the running mean gbar updated with the GLOBAL 1/n
     scaling (§5.2), and pushes (dx, dgbar) with server coefficient 1/p.
@@ -661,13 +691,25 @@ def run_dsaga(sp: ShardedProblem, *, eta: float, rounds: int,
     ``orders``: per-event sample indices (rounds * p, tau), rows in
     schedule order (the reference's draws:
     ``repro_torch.convert.dsaga_orders``); ``None`` draws them from a
-    ``torch.Generator`` seeded with ``seed``."""
+    ``torch.Generator`` seeded with ``seed``.
+
+    ``backend="spmd"`` defaults to (and requires) ``fetch="stale"``, run
+    as concurrency waves with one worker per rank of ``group``
+    (``core/spmd.py``); instant fetch has no worker-parallel program and
+    raises."""
     from repro_torch.core import fused as fusedmod
     from repro_torch.core import solver
     spec = solver.RunSpec(
-        algo="dsaga", p=sp.p, eta=float(eta), rounds=rounds, fetch=fetch,
+        algo="dsaga", p=sp.p, eta=float(eta), rounds=rounds,
+        backend=backend, fetch=fetch,
         speeds=None if speeds is None else tuple(float(s) for s in speeds),
         tau=tau, fused=fused, prox=proxops.canonical(prox))
+    if spec.backend == "spmd":
+        from repro_torch.core import spmd
+        return spmd.run_dsaga(sp, eta=eta, rounds=rounds, tau=tau,
+                              literal_scaling=literal_scaling,
+                              speeds=spec.speeds, orders=orders, seed=seed,
+                              group=group, fused=fused, prox=spec.prox)
     device = sp.A.device
     if orders is None:
         orders = draw_dsaga_orders(_generator(device, seed), sp.p, sp.ns,

@@ -4,16 +4,17 @@ of ``repro/core/solver.py``.
   * :class:`RunSpec` — a frozen description of one run with ALL of the
     reference's cross-field validation, so an invalid combination fails
     before any torch work with the reference's error text. A valid spec
-    for a part that is not ported yet (the spmd backend, process fleets
-    and elasticity) raises ``NotImplementedError`` naming the ROADMAP.md
-    item that ports it.
+    for a part that is not ported yet (process fleets and elasticity)
+    raises ``NotImplementedError`` naming the ROADMAP.md item that ports
+    it.
   * ``FAMILY`` — the capability record of every algorithm of the
     reference's registry (what RunSpec validates against); ``REGISTRY``
     — the same eleven algorithms with their drivers.
   * :class:`RunResult` — the uniform return, with the device it ran on
     and the kernel launches it made.
   * :func:`solve` — runs a spec on the CUDA device, or on the CPU when the
-    caller asks for it.
+    caller asks for it; ``backend="spmd"`` on this rank's device of a
+    worker group (``core/spmd.py``, ``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ FAMILY: dict[str, AlgoCaps] = {
 class Algorithm(NamedTuple):
     name: str
     caps: AlgoCaps
-    call: Callable             # (spec, problem, eta, orders) ->
+    call: Callable             # (spec, problem, eta, orders, group) ->
                                #   (state, x, rels, grad_evals | None)
     doc: str
 
@@ -114,7 +115,8 @@ class RunSpec:
                     problem at solve time
       rounds        communication rounds (epochs for Algorithm 1)
       backend       "vmap" (workers as a batch dimension on one device);
-                    "spmd" is not ported yet
+                    "spmd" (one worker per process over torch.distributed,
+                    ``core/spmd.py``)
       fetch         "instant" | "stale" (D-SAGA); None -> "instant"
       speeds        per-worker relative speeds of the asynchronous event
                     schedule (centralvr_async, dsaga); None -> round-robin
@@ -381,11 +383,6 @@ class RunSpec:
                 "elastic=True")
 
         # validated like the reference; now refuse what is not ported yet
-        if self.backend == "spmd":
-            raise NotImplementedError(
-                "RunSpec.backend: the spmd backend is not ported to "
-                "repro_torch yet (ROADMAP.md queue 1, item 9); use "
-                "backend='vmap'")
         if self.topology == "process" or self.elastic:
             raise NotImplementedError(
                 "RunSpec.topology: process fleets and elasticity are not "
@@ -406,9 +403,13 @@ class RunResult:
     by kernel: ``vr_epoch`` one per fused epoch or inner loop,
     ``lazy_epoch`` one per epoch of the sparse driver (the init epoch
     included), ``vr_update`` (K1's per-step route, the LM's) none (0 on
-    the unfused body and on the CPU). ``device`` names where it ran.
-    ``comms`` is the analytical bytes-per-collective model of the run
-    (``obs/comms.py``) at the run's element size.
+    the unfused body and on the CPU); under ``backend="spmd"`` this
+    rank's. ``device`` names where it ran. ``comms`` is the analytical
+    bytes-per-collective model of the run (``obs/comms.py``) at the run's
+    element size; under ``backend="spmd"`` also what this rank's
+    collectives carried, ``carried_bytes`` (result-shape bytes) in
+    ``collectives`` calls. Under ``backend="spmd"`` ``x`` and ``rels`` are
+    replicated and ``state`` holds this rank's shard of the tables.
     """
 
     spec: RunSpec
@@ -441,12 +442,14 @@ class RunResult:
 # solve
 # ---------------------------------------------------------------------------
 
-def _coerce_problem(spec: RunSpec, problem, device: torch.device):
+def _coerce_problem(spec: RunSpec, problem, device: torch.device,
+                    place: bool = True):
     """Match the data topology to the algorithm — shard a flat Problem for
     the distributed algorithms, merge a ShardedProblem for the
     single-worker ones, or draw either from a ConvexConfig (a
     ``torch.Generator`` seeded with ``cfg.seed``, on ``device``) — and
-    place it on ``device``."""
+    place it on ``device`` (``place=False``: leave a given problem where
+    it is; the spmd runners copy only their rank's shard)."""
     from repro_torch.config import ConvexConfig
     from repro_torch.core import convex, distributed
 
@@ -464,7 +467,8 @@ def _coerce_problem(spec: RunSpec, problem, device: torch.device):
         if problem.workers > 1:
             return distributed.make_distributed(gen, problem).merged()
         return convex.make_problem(gen, problem)
-    if isinstance(problem, (convex.Problem, distributed.ShardedProblem)):
+    if place and isinstance(problem, (convex.Problem,
+                                      distributed.ShardedProblem)):
         problem = problem._replace(A=problem.A.to(device),
                                    b=problem.b.to(device))
     if isinstance(problem, distributed.ShardedProblem):
@@ -484,7 +488,8 @@ def _coerce_problem(spec: RunSpec, problem, device: torch.device):
         f"{type(problem).__name__}")
 
 
-def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
+def solve(spec: RunSpec, problem, *, device=None, orders=None,
+          group=None) -> RunResult:
     """Run ``spec`` against ``problem`` (a ``ConvexConfig``, ``Problem``, or
     ``ShardedProblem``) and return the uniform :class:`RunResult`.
 
@@ -492,6 +497,14 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     there is none — never a silent fall back to the CPU; ``"cpu"`` (or
     any torch device) runs there. ``eta=None`` resolves to
     ``convex.auto_eta`` on the merged problem.
+
+    ``backend="spmd"``: every rank of ``group`` (a
+    ``launch.mesh.WorkerGroup`` of ``spec.p`` ranks; default the default
+    process group's, ``launch.mesh.make_worker_mesh``) calls ``solve``
+    with the same arguments and runs its own worker on its own device
+    (Algorithm 1 in a group of one rank). A ``ConvexConfig`` is drawn on
+    that device, as the vmap run draws it; a given problem stays where it
+    is and each rank copies its own shard.
 
     ``orders``: the run's draws, as the driver takes them; None draws
     them from a ``torch.Generator`` seeded with ``spec.seed`` on the
@@ -529,8 +542,21 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     from repro_torch.obs import comms as obs_comms
 
     entry = REGISTRY[spec.algo]
-    device = resolve_device(device, "repro_torch.solve")
-    problem = _coerce_problem(spec, problem, device)
+    spmd_run = spec.backend == "spmd"
+    if spmd_run:
+        from repro_torch.core import spmd
+        group = spmd._check_group(group, spec.p)
+        if device is not None and torch.device(device) != group.device:
+            raise ValueError(f"solve: device={device!r}, but this rank of "
+                             f"the worker group runs on {group.device}")
+        device = group.device
+    else:
+        if group is not None:
+            raise ValueError("solve: group= is the worker group of "
+                             "backend='spmd'; this spec runs backend="
+                             f"{spec.backend!r}")
+        device = resolve_device(device, "repro_torch.solve")
+    problem = _coerce_problem(spec, problem, device, place=not spmd_run)
     eta = spec.eta
     if eta is None:
         merged = (problem.merged()
@@ -541,8 +567,10 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     counters = {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
                 "lazy_epoch": lazy_kernel}
     launches0 = {k: m.launches for k, m in counters.items()}
+    carried0 = (group.carried_bytes, group.collectives) if spmd_run else None
     t0 = time.perf_counter()
-    state, x, rels, grad_evals = entry.call(spec, problem, eta, orders)
+    state, x, rels, grad_evals = entry.call(spec, problem, eta, orders,
+                                            group)
     rels = rels.cpu().numpy()
     wall = time.perf_counter() - t0
     launches = {k: m.launches - launches0[k] for k, m in counters.items()}
@@ -557,6 +585,9 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
     comms = obs_comms.comms_model(spec.algo, p=spec.p, d=int(x.shape[-1]),
                                   rounds=spec.rounds,
                                   bytes_per_el=x.element_size())
+    if spmd_run:
+        comms["carried_bytes"] = group.carried_bytes - carried0[0]
+        comms["collectives"] = group.collectives - carried0[1]
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
     return RunResult(spec=resolved, rels=rels, x=x.cpu().numpy(),
@@ -569,53 +600,58 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None) -> RunResult:
 # and normalizes its return to (state, final iterate, rels, grad_evals)
 # ---------------------------------------------------------------------------
 
-def _call_centralvr(spec, prob, eta, orders):
+def _call_centralvr(spec, prob, eta, orders, group):
     from repro_torch.core import centralvr
     st, rels, evals = centralvr.run(prob, eta=eta, epochs=spec.rounds,
                                     orders=orders, seed=spec.seed,
                                     sampling=spec.sampling, fused=spec.fused,
-                                    prox=spec.prox)
+                                    prox=spec.prox,
+                                    backend=spec.backend, group=group)
     return st, st.x, rels, evals
 
 
-def _call_sync(spec, sp, eta, orders):
+def _call_sync(spec, sp, eta, orders, group):
     from repro_torch.core import distributed
     st, rels = distributed.run_sync(sp, eta=eta, rounds=spec.rounds,
                                     orders=orders, seed=spec.seed,
-                                    fused=spec.fused, prox=spec.prox)
+                                    fused=spec.fused, prox=spec.prox,
+                                    backend=spec.backend, group=group)
     return st, st.x, rels, None
 
 
-def _call_async(spec, sp, eta, orders):
+def _call_async(spec, sp, eta, orders, group):
     from repro_torch.core import distributed
     st, rels = distributed.run_async(sp, eta=eta, rounds=spec.rounds,
                                      orders=orders, seed=spec.seed,
                                      speeds=spec.speeds, fused=spec.fused,
-                                     prox=spec.prox)
+                                     prox=spec.prox,
+                                     backend=spec.backend, group=group)
     return st, st.x_c, rels, None
 
 
-def _call_dsvrg(spec, sp, eta, orders):
+def _call_dsvrg(spec, sp, eta, orders, group):
     from repro_torch.core import distributed
     x, rels = distributed.run_dsvrg(sp, eta=eta, rounds=spec.rounds,
                                     tau=spec.tau or 0, orders=orders,
                                     seed=spec.seed, fused=spec.fused,
                                     prox=spec.prox,
-                                    snapshot=spec.snapshot or "last")
+                                    snapshot=spec.snapshot or "last",
+                                    backend=spec.backend, group=group)
     return x, x, rels, None
 
 
-def _call_dsaga(spec, sp, eta, orders):
+def _call_dsaga(spec, sp, eta, orders, group):
     from repro_torch.core import distributed
     st, rels = distributed.run_dsaga(sp, eta=eta, rounds=spec.rounds,
                                      tau=spec.tau or 100, fetch=spec.fetch,
                                      speeds=spec.speeds, orders=orders,
                                      seed=spec.seed, fused=spec.fused,
-                                     prox=spec.prox)
+                                     prox=spec.prox,
+                                     backend=spec.backend, group=group)
     return st, st.x_c, rels, None
 
 
-def _call_sgd(spec, prob, eta, orders):
+def _call_sgd(spec, prob, eta, orders, group):
     from repro_torch.core import baselines
     x, rels = baselines.run_sgd(prob, eta=eta, epochs=spec.rounds,
                                 orders=orders, seed=spec.seed,
@@ -623,7 +659,7 @@ def _call_sgd(spec, prob, eta, orders):
     return x, x, rels, None
 
 
-def _call_svrg(spec, prob, eta, orders):
+def _call_svrg(spec, prob, eta, orders, group):
     from repro_torch.core import baselines
     x, rels = baselines.run_svrg(prob, eta=eta, epochs=spec.rounds,
                                  inner=spec.tau or 0, orders=orders,
@@ -633,7 +669,7 @@ def _call_svrg(spec, prob, eta, orders):
     return x, x, rels, None
 
 
-def _call_saga(spec, prob, eta, orders):
+def _call_saga(spec, prob, eta, orders, group):
     from repro_torch.core import baselines
     x, rels = baselines.run_saga(prob, eta=eta, epochs=spec.rounds,
                                  orders=orders, seed=spec.seed,
@@ -641,26 +677,29 @@ def _call_saga(spec, prob, eta, orders):
     return x, x, rels, None
 
 
-def _call_dist_sgd(spec, sp, eta, orders):
+def _call_dist_sgd(spec, sp, eta, orders, group):
     from repro_torch.core import baselines
     x, rels = baselines.run_dist_sgd(sp, eta=eta, rounds=spec.rounds,
                                      tau=spec.tau or 0, decay=spec.decay,
-                                     orders=orders, seed=spec.seed)
+                                     orders=orders, seed=spec.seed,
+                                     backend=spec.backend, group=group)
     return x, x, rels, None
 
 
-def _call_easgd(spec, sp, eta, orders):
+def _call_easgd(spec, sp, eta, orders, group):
     from repro_torch.core import baselines
     xc, rels = baselines.run_easgd(sp, eta=eta, rounds=spec.rounds,
                                    tau=spec.tau or 16, decay=spec.decay,
-                                   orders=orders, seed=spec.seed)
+                                   orders=orders, seed=spec.seed,
+                                   backend=spec.backend, group=group)
     return xc, xc, rels, None
 
 
-def _call_ps_svrg(spec, sp, eta, orders):
+def _call_ps_svrg(spec, sp, eta, orders, group):
     from repro_torch.core import baselines
     x, rels = baselines.run_ps_svrg(sp, eta=eta, rounds=spec.rounds,
-                                    orders=orders, seed=spec.seed)
+                                    orders=orders, seed=spec.seed,
+                                    backend=spec.backend, group=group)
     return x, x, rels, None
 
 

@@ -6,9 +6,14 @@ at the root of the checkout, and loaded with ctypes by its wrapper.
 A library's file name carries the hash of its source and of the flags, so
 an edited source builds anew. :func:`build` starts one ``nvcc`` for every
 source whose library is missing, all at once, and waits for them all.
+It holds an exclusive ``fcntl.flock`` on the build directory's lock file
+meanwhile, so processes that start together (the ranks of the spmd
+backend) compile each source once: one builds, the others wait for the
+lock, find the libraries and only load them.
 """
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -41,11 +46,20 @@ def build(*sources: Path) -> list:
     all started together; returns the libraries' paths in order. Raises
     with nvcc's output if any build fails."""
     libs = [library_path(s) for s in sources]
+    if all(lib.exists() for lib in libs):
+        return libs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when it is closed
+        _build_missing(sources, libs)
+    return libs
+
+
+def _build_missing(sources, libs) -> None:
     jobs = []
     for src, lib in zip(sources, libs):
         if lib.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                                  str(src)], stdout=subprocess.PIPE,
@@ -62,4 +76,3 @@ def build(*sources: Path) -> list:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return libs

@@ -4,11 +4,18 @@
         --reduced --steps 8 --vr centralvr --vr-table-size 2 \
         --num-workers 2 --device cpu
 
-Runs ``train/loop.py``'s epoch loop (W stacked workers on one device).
-``--device`` defaults to the current CUDA device and fails without one.
-The reference's per-step host runtime, its spmd backend and its
-production meshes are not ported yet and raise, naming their ROADMAP.md
-item.
+Runs ``train/loop.py``'s epoch loop: W stacked workers on one device,
+or with ``--backend spmd`` one worker per process over
+``torch.distributed`` — W ranks started here by
+``launch.mesh.spawn_workers``, or, under ``torchrun``, the ranks it
+started:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch mamba2-130m --reduced --num-workers 2 --backend spmd
+
+``--device`` defaults to each rank's CUDA device and fails without one.
+The reference's per-step host runtime and its production meshes are not
+ported yet and raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ def parse_args(argv=None):
                          "ported)")
     ap.add_argument("--backend", default="vmap", choices=["vmap", "spmd"],
                     help="stacked workers on one device vs one worker per "
-                         "device (not ported)")
+                         "process (torch.distributed)")
     ap.add_argument("--num-workers", type=int, default=1)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -48,17 +55,9 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.runtime == "host":
-        raise SystemExit("--runtime host (train/host_loop.py) is not ported "
-                         "yet (ROADMAP.md queue 1, item 13)")
-    if args.backend == "spmd":
-        raise SystemExit("--backend spmd is not ported yet (ROADMAP.md "
-                         "queue 1, item 9)")
-    if args.mesh != "test":
-        raise SystemExit(f"--mesh {args.mesh} is not ported yet (ROADMAP.md "
-                         "queue 1, item 9)")
+def _train(group, args):
+    """One run of the epoch loop (in a rank of ``group`` under spmd);
+    returns what ``main`` prints."""
     from repro_torch.config import TrainConfig, get_arch
     from repro_torch.train import loop
 
@@ -71,13 +70,43 @@ def main(argv=None):
         optimizer=args.optimizer, vr=args.vr,
         vr_table_size=args.vr_table_size, local_epoch=args.local_epoch,
         seed=args.seed)
+    lead = group is None or group.rank == 0
     res = loop.run_training(
         cfg, tcfg, epochs=args.epochs or None,
         steps=None if args.epochs else args.steps,
-        workers=args.num_workers, device=args.device)
-    print(f"done: {res.steps} steps in {res.wall_time:.1f}s; "
-          f"final train loss {res.losses[-1]:.4f}; "
-          f"eval loss {res.final_eval_loss:.4f}")
+        workers=args.num_workers, backend=args.backend,
+        device=None if group is not None else args.device, group=group,
+        log_fn=print if lead else (lambda _: None))
+    return dict(steps=res.steps, wall_time=res.wall_time,
+                loss=res.losses[-1], eval_loss=res.final_eval_loss)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.runtime == "host":
+        raise SystemExit("--runtime host (train/host_loop.py) is not ported "
+                         "yet (ROADMAP.md queue 1, item 13)")
+    if args.mesh != "test":
+        raise SystemExit(f"--mesh {args.mesh} is not ported yet (ROADMAP.md "
+                         "queue 1, item 13 (rest))")
+    if args.backend == "spmd":
+        import os
+
+        from repro_torch.launch import mesh
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            group = mesh.make_worker_mesh(args.num_workers,
+                                          device=args.device)
+            out = _train(group, args)
+            if group.rank:
+                return
+        else:
+            out = mesh.spawn_workers(args.num_workers, _train, args,
+                                     device=args.device)[0]
+    else:
+        out = _train(None, args)
+    print(f"done: {out['steps']} steps in {out['wall_time']:.1f}s; "
+          f"final train loss {out['loss']:.4f}; "
+          f"eval loss {out['eval_loss']:.4f}")
 
 
 if __name__ == "__main__":

@@ -37,8 +37,8 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
                  checkpoint_every: int = 0, resume: bool = False,
                  log_every: int = 1,
                  log_fn: Callable[[str], None] = print, device=None,
-                 params=None, tokens=None,
-                 eval_tokens=None) -> LoopResult:
+                 params=None, tokens=None, eval_tokens=None,
+                 group=None) -> LoopResult:
     """Train for whole communication epochs; ``steps`` may be given
     instead of ``epochs`` but must be a multiple of M*K.
 
@@ -46,7 +46,9 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     ``params``, ``tokens`` and ``eval_tokens`` replace the seeded initial
     params, the epoch's token block and the held-out batch (agreement
     tests pass the reference's); by default all three come from
-    ``tcfg.seed``.
+    ``tcfg.seed``. ``backend="spmd"``: every rank of ``group`` (default
+    the default process group's) calls this; each steps its own worker
+    (``step.place_train_state``) and evaluates the averaged params.
     """
     if checkpoint_path or checkpoint_every or resume:
         raise NotImplementedError(
@@ -63,10 +65,12 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
         epochs = steps // E
     run_epoch, meta = tstep.make_epoch_runner(cfg, tcfg, workers,
                                               backend=backend, device=device,
-                                              tokens=tokens)
+                                              tokens=tokens, group=group)
     W = meta["workers"]
     state = tstep.init_train_state(cfg, tcfg, W, params=params,
                                    device=meta["device"])
+    if backend == "spmd" and W > 1:
+        state = tstep.place_train_state(state, meta["group"])
 
     result = LoopResult()
     t0 = time.time()
@@ -92,7 +96,7 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     if not isinstance(eval_tokens, torch.Tensor):
         eval_tokens = torch.from_numpy(np.asarray(eval_tokens))
     ev = eval_tokens.to(state.params.device, torch.int64)
-    flat = tstep.eval_params(state.params, W)
+    flat = tstep.eval_params(state.params, state.params.shape[0])
     with torch.no_grad():
         result.final_eval_loss = float(modellib.loss_fn(
             state.layout.views(flat), cfg, {"tokens": ev}, remat="none"))

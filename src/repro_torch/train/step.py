@@ -16,6 +16,13 @@ reference vmaps them; the port makes W the leading dimension of every
 buffer, so the fused VR step (``vr_wrapper.apply``) is one K1 launch for
 all workers.
 
+``backend="spmd"``: one worker per process over ``torch.distributed``
+(``launch/mesh.py``), as the reference's ``_epoch_runner_spmd``: each
+rank holds its worker's flat params, VR state and optimiser state as
+(1, N) buffers (``place_train_state``), and at the epoch boundary the
+params, gbar and the losses are averaged across the ranks by all-reduce
+(``core/spmd.py``'s collectives).
+
 With ``fused`` on, each worker's forward and backward run under
 ``models.kernel_ctx`` (K2 RMSNorm, K3 flash attention, K4 SSD scan,
 relaunched by the ``remat="block"`` recompute), and with SGD the VR
@@ -75,6 +82,16 @@ def worker_average(buf: torch.Tensor) -> torch.Tensor:
     """Algorithm 2 lines 16-18: the central average over the leading worker
     axis, written back to every worker's row (in place)."""
     return buf.copy_(buf.mean(0, keepdim=True).expand_as(buf))
+
+
+def group_average_(buf: torch.Tensor, group) -> torch.Tensor:
+    """``worker_average`` across the ranks of ``group``: the all-reduce
+    mean of each rank's (1, N) buffer, in place. A bfloat16 buffer is
+    summed in float32 and rounded once, as ``mean`` rounds."""
+    from repro_torch.core import spmd
+    if buf.dtype in (torch.float32, torch.float64):
+        return spmd.psum_(buf, group).div_(group.world)
+    return buf.copy_(spmd.psum_(buf.float(), group).div_(group.world))
 
 
 def eval_params(params: torch.Tensor, W: int) -> torch.Tensor:
@@ -142,6 +159,36 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
     return TrainState(flat, opt.init(flat), vr, 0, grad, snap, layout)
 
 
+def place_train_state(state: TrainState, group) -> TrainState:
+    """This rank's slice of a W-stacked ``TrainState``, copied onto its
+    device (the reference's ``place_train_state``): every (W, ...) buffer
+    of params, optimiser state, VR state and accumulators becomes the
+    rank's (1, ...) row."""
+    r = group.rank
+    W = state.params.shape[0]
+    if W != group.world:
+        raise ValueError(f"place_train_state: the state holds {W} workers "
+                         f"but the group has {group.world} ranks")
+
+    def put(t):
+        if isinstance(t, torch.Tensor):
+            return t[r:r + 1].to(group.device, copy=True)
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(put(v) for v in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(put(v) for v in t)
+        return t
+
+    vr = state.vr_state
+    if vr is not None:
+        vr = vr_wrapper.VRState(table=put(vr.table), gbar=put(vr.gbar),
+                                gtilde=put(vr.gtilde),
+                                snapshot=put(vr.snapshot), idx=vr.idx)
+    return TrainState(put(state.params), put(state.opt_state), vr,
+                      state.step, put(state.grad), put(state.grad_snap),
+                      state.layout)
+
+
 def _check_kernel_shapes(cfg: ModelConfig):
     """Refuse, when the runner is built, a model whose shapes a kernel of
     the fused path does not take on the card (the forward would raise in
@@ -158,14 +205,21 @@ def _check_kernel_shapes(cfg: ModelConfig):
 
 def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
                       backend: str = "vmap", fused=False, device=None,
-                      tokens=None):
+                      tokens=None, group=None):
     """One whole communication epoch (M*K steps) per call:
     ``run_epoch(state) -> (state, (M*K,) losses)``, with the Algorithm-2
     worker average at the epoch boundary. ``state`` is updated in place
     and returned; ``state.step`` must be a multiple of M*K.
 
     ``backend="vmap"``: the W workers on one device (their buffers
-    stacked). ``"spmd"`` (one worker per device) is not ported yet.
+    stacked). ``"spmd"``: one worker per rank of ``group`` (a
+    ``launch.mesh.WorkerGroup`` of W ranks; default the default process
+    group's), each rank calling this with the same arguments and running
+    its worker on its device with state of (1, N) buffers
+    (``place_train_state``); at the epoch boundary the params, gbar and
+    the losses are averaged across the ranks. W = 1 is the vmap runner on
+    the rank's device, as in the reference. ``meta["group"]`` is the
+    group.
 
     ``fused``: False | True | "auto", as in ``repro_torch.solve``. True
     runs the kernels: on CUDA tensors the hand-written kernels, or an
@@ -176,8 +230,9 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
 
     ``tokens``: the epoch's token block (W, M*K, A, mb, S), replayed every
     epoch (the finite sum); default ``synthetic.epoch_tokens`` from
-    ``tcfg.seed``. ``device``: None is the current CUDA device (raises
-    without one).
+    ``tcfg.seed``; under spmd drawn once and sliced per rank.
+    ``device``: None is the current CUDA device (raises without one); the
+    rank's device under spmd.
     """
     from repro_torch import kernels
 
@@ -185,9 +240,20 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
         raise ValueError(f"unknown backend {backend!r}: "
                          "expected 'vmap' or 'spmd'")
     if backend == "spmd":
-        raise NotImplementedError(
-            "backend='spmd' (one worker per device over torch.distributed) is "
-            "not ported yet (ROADMAP.md queue 1, item 9)")
+        if group is None:
+            from repro_torch.launch import mesh
+            group = mesh.make_worker_mesh(W)
+        if group.world != W:
+            raise ValueError(
+                f"worker mesh has {group.world} devices but W={W}; the spmd "
+                "epoch runtime places exactly one worker per device")
+        if device is not None and torch.device(device) != group.device:
+            raise ValueError(f"make_epoch_runner: device={device!r}, but "
+                             f"this rank runs on {group.device}")
+        device = group.device
+    elif group is not None:
+        raise ValueError("make_epoch_runner: group= is the worker group of "
+                         "backend='spmd'")
     device = kernels.resolve_device(device, "repro_torch.train")
     fuse_on = kernels.resolve_fused(fused, device)
     if (fused is True and tcfg.vr != "none"
@@ -207,6 +273,8 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
             "grads_per_step": vr_wrapper.grads_per_step(mode),
             "vr_storage_mult": vr_wrapper.storage_multiplier(mode, M),
             "fused": fuse_on, "device": str(device)}
+    if backend == "spmd":
+        meta["group"] = group
 
     if tokens is None:
         tokens = synthetic.epoch_tokens(
@@ -219,6 +287,11 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
     if tuple(tokens.shape) != want:
         raise ValueError(f"tokens has shape {tuple(tokens.shape)}, the run "
                          f"needs (W, M*K, A, mb, S) = {want}")
+    # the workers this process steps: W stacked, or its rank's one
+    spmd_run = backend == "spmd" and W > 1
+    if spmd_run:
+        tokens = tokens[group.rank:group.rank + 1]
+    nw = 1 if spmd_run else W
 
     opt = optimizers.make(tcfg.optimizer, tcfg.learning_rate,
                           tcfg.weight_decay)
@@ -229,7 +302,7 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
         vr = state.vr_state
         with ctx:
             losses = []
-            for w in range(W):
+            for w in range(nw):
                 losses.append(_local_grads(state.params[w], state.layout,
                                            cfg, tcfg, toks[w],
                                            state.grad[w]))
@@ -262,11 +335,21 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
         if state.step % E:
             raise ValueError(f"state.step={state.step} is not at an epoch "
                              f"boundary (M*K={E})")
+        if state.params.shape[0] != nw:
+            raise ValueError(
+                f"the state holds {state.params.shape[0]} workers, this "
+                f"runner steps {nw}"
+                + (" (its rank's; place_train_state)" if spmd_run else ""))
         losses = torch.stack([train_step(state, tokens[:, s],
                                          (state.step + s) % M)
                               for s in range(E)])
         state.step += E
-        if W > 1:
+        if spmd_run:
+            group_average_(state.params, group)
+            if mode != "none":
+                group_average_(state.vr_state.gbar, group)
+            group_average_(losses, group)
+        elif W > 1:
             worker_average(state.params)
             if mode != "none":
                 worker_average(state.vr_state.gbar)

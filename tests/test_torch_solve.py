@@ -169,9 +169,7 @@ def test_runspec_refuses_like_the_reference(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(algo="centralvr_async", p=2, backend="spmd"), "item 9"),
     (dict(algo="centralvr_async", p=2, elastic=True), "item 11"),
-    (dict(algo="centralvr", backend="spmd"), "item 9"),
     (dict(algo="centralvr_sync", p=2, topology="process"), "item 11"),
 ])
 def test_unported_parts_raise_naming_the_roadmap_item(kw, item):
@@ -192,14 +190,16 @@ def _grid():
         yield dict(zip(axes, values))
 
 
+@pytest.mark.parametrize("backend", ["vmap", "spmd"])
 @pytest.mark.parametrize("algo", list(repro_torch.REGISTRY))
-def test_runspec_accepts_what_the_reference_accepts(algo):
-    """For every algorithm, every combination the reference's RunSpec
-    accepts with backend="vmap" and topology="local" is accepted (and
-    resolved alike) by the port's; every one it refuses is refused with
-    the same error."""
+def test_runspec_accepts_what_the_reference_accepts(algo, backend):
+    """For every algorithm and both backends, every combination the
+    reference's RunSpec accepts with topology="local" is accepted (and
+    resolved alike: D-SAGA's fetch defaults to "stale" under spmd) by the
+    port's; every one it refuses is refused with the same error."""
     accepted = 0
     for kw in _grid():
+        kw["backend"] = backend
         try:
             want = repro.RunSpec(algo, **kw)
         except (ValueError, NotImplementedError) as e:
@@ -210,7 +210,9 @@ def test_runspec_accepts_what_the_reference_accepts(algo):
         have = repro_torch.RunSpec(algo, **kw)
         assert dataclasses.asdict(have) == dataclasses.asdict(want)
         accepted += 1
-    assert accepted > 0
+    # the single-device baselines have no spmd program at all
+    runs_here = backend == "vmap" or repro_torch.REGISTRY[algo].caps.spmd_ok
+    assert (accepted > 0) == runs_here
 
 
 def test_solve_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
