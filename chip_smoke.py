@@ -151,6 +151,31 @@ Phases, each of which raises on failure:
      (A = 2), the same gates, with launches per step K1 1, K2
      (L + 1 + L) * A * W = 196, K4 (L + L) * A * W = 192; and W=2 at
      ``mamba2-130m.reduced()``;
+ 6b. telemetry (``repro_torch.obs``): fused runs through ``solve`` on
+     ``dist-toy-logistic`` (p 8, d 1000) of Algorithm 2 (10 rounds),
+     Algorithm 3 with speeds 1..8 (2 rounds) and stale D-SAGA (tau 100,
+     20 rounds), each unrecorded, recorded, unrecorded, recorded on the
+     same draws: x and rels bit-identical, vr_epoch launches equal (and
+     equal to the ``solve/<algo>/execute`` span's ``launches``), the
+     span's ``device_ms`` <= its ``dur_s``, the streamed metric rows =
+     rels, no CUDA event and no metric stream made unrecorded; ``[obs]``
+     lines give the warm wall recorded against unrecorded. The
+     ``kernels/build`` span of vr_epoch's source cold (a fresh
+     ``--compile-cache`` directory) and from a second process on the
+     same directory (it must compile nothing). ``python -m
+     repro_torch.launch.solve --sweep --workers 8 --n 100 --d 1000
+     --rounds 3`` (n cut from the preset's 5000 a worker so the unfused
+     sweep under the profiler stays short) with ``--obs``, ``--json``
+     and ``--profile``: exit 0, 11 provenance rows, the record validates
+     (``launch.obs validate``), every execute span carries
+     ``device_ms``, the trace parses (its kernel events counted); and
+     ``python -m repro_torch.launch.train`` at Mamba2-130M's full width
+     and depth (seq 2048, global batch 16, microbatch 4, W 2, M 2, one
+     epoch) with ``--obs`` and ``--profile``, its ``train/epoch``,
+     ``train_epoch`` and ``train/eval`` rows present. The second build,
+     the sweep and the launcher run as three processes at once, after
+     the timed runs. ``--obs`` runs only the device phase, the build and
+     this phase;
   7. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape; CUDA events for K1 at
@@ -1808,6 +1833,388 @@ def phase_spmd(torch, kernels):
     return dict(runs=recs, lm=lm, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6b: telemetry (repro_torch.obs) and the command lines
+# ---------------------------------------------------------------------------
+
+OBS_OUT = ROOT / "build" / "obs_smoke"  # records and traces (build/ is
+#                                         not committed)
+# the CLI sweep's size: p 8 and d 1000 of dist-toy-logistic, its n cut to
+# 100 a worker so the unfused sweep under the profiler stays short
+OBS_SWEEP = ("--sweep", "--workers", "8", "--n", "100", "--d", "1000",
+             "--rounds", "3")
+# the train launcher at Mamba2-130M's full width and depth, W 2, M 2: one
+# epoch (2 steps), whose profile alone is 0.75 million trace events
+OBS_TRAIN = ("--arch", "mamba2-130m", "--seq-len", "2048",
+             "--global-batch", "16", "--microbatch", "4", "--num-workers",
+             "2", "--vr-table-size", "2", "--epochs", "1", "--optimizer",
+             "sgd", "--lr", "0.01")
+
+
+def obs_runs(torch):
+    """Phase 6b's fused runs on ``dist-toy-logistic`` (p 8, 5000 x 1000 a
+    worker) with their draws: (label, spec, draws, vr_epoch launches)."""
+    from repro_torch.configs.paper_convex import PRESETS
+    from repro_torch.core import distributed as ds
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dist = PRESETS["dist-toy-logistic"]
+    p, ns = dist.workers, dist.n
+    speeds = tuple(float(s) for s in range(1, p + 1))
+    return dist, [
+        ("centralvr_sync p=8", dict(algo="centralvr_sync", p=p,
+                                    rounds=ROUNDS),
+         ds.draw_sync_orders(gen, p, ns, ROUNDS), ROUNDS + 1),
+        ("centralvr_async p=8 speeds 1..8",
+         dict(algo="centralvr_async", p=p, rounds=2, speeds=speeds),
+         ds.draw_async_orders(gen, p, ns, 2), 1 + 2 * p),
+        ("dsaga p=8 stale (tau 100)",
+         dict(algo="dsaga", p=p, rounds=20, tau=100, fetch="stale"),
+         ds.draw_dsaga_orders(gen, p, ns, 20, 100), 20 * p),
+    ]
+
+
+def obs_solve(torch, kernels, spec_kw, cfg, draws, path=None):
+    """One fused solve, recorded into ``path`` or not; returns (result,
+    kernel counts, wall s, CUDA events and metric streams opened)."""
+    from repro_torch import RunSpec, obs, solve
+    from repro_torch.obs import stream
+
+    made = {"events": 0, "streams": 0}
+    event_cls, stream_cls = torch.cuda.Event, stream.MetricStream
+
+    class CountedEvent(event_cls):
+        def __new__(cls, *a, **kw):
+            made["events"] += 1
+            return event_cls.__new__(cls, *a, **kw)
+
+    class CountedStream(stream_cls):
+        def __init__(self, *a, **kw):
+            made["streams"] += 1
+            super().__init__(*a, **kw)
+
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    torch.cuda.Event, stream.MetricStream = CountedEvent, CountedStream
+    try:
+        t0 = time.perf_counter()
+        if path is None:
+            res = solve(RunSpec(fused=True, **spec_kw), cfg, orders=draws)
+        else:
+            with obs.recording(str(path)):
+                res = solve(RunSpec(fused=True, **spec_kw), cfg,
+                            orders=draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.Event, stream.MetricStream = event_cls, stream_cls
+    return res, read_counts(kernels), wall, made
+
+
+def obs_check_run(torch, kernels, label, spec_kw, cfg, draws, launches):
+    """A fused run unrecorded, recorded, unrecorded, recorded on the same
+    draws. Gates: x and rels bit-identical, the kernel counts equal and
+    vr_epoch's = ``launches``, the execute span's launches equal them,
+    device_ms <= dur_s, the metric rows = rels, no CUDA event and no
+    stream made unrecorded. Returns the run's record."""
+    import numpy as np
+
+    from repro_torch.obs import schema
+
+    algo = spec_kw["algo"]
+    path = OBS_OUT / f"{algo}.jsonl"
+    runs = [obs_solve(torch, kernels, spec_kw, cfg, draws,
+                      path if i % 2 else None) for i in range(4)]
+    off, on = runs[2], runs[3]
+    want = dict.fromkeys(kernels, 0)
+    want["vr_epoch"] = launches
+    for res, counts, _, _ in runs:
+        if not (np.array_equal(res.x, off[0].x)
+                and np.array_equal(res.rels, off[0].rels)):
+            raise AssertionError(f"[obs] {label}: a recorded run's x or "
+                                 "rels differ from the unrecorded run's")
+        if counts != want or res.launches["vr_epoch"] != launches:
+            raise AssertionError(f"[obs] {label}: launched {counts}, "
+                                 f"expected {want}")
+    for _, _, _, made in runs[0::2]:
+        if made != {"events": 0, "streams": 0}:
+            raise AssertionError(f"[obs] {label}: the unrecorded run made "
+                                 f"{made}")
+    rows = schema.load_rows(str(path))
+    schema.validate_rows(rows)
+    spans = [r for r in rows if r["kind"] == "span"
+             and r["name"] == f"solve/{algo}/execute"]
+    if len(spans) != 1:
+        raise AssertionError(f"[obs] {label}: {len(spans)} execute spans")
+    ex = spans[0]
+    if ex["launches"] != want:
+        raise AssertionError(f"[obs] {label}: the execute span counted "
+                             f"{ex['launches']}, the run {want}")
+    if not 0.0 < ex["device_ms"] <= ex["dur_s"] * 1e3:
+        raise AssertionError(f"[obs] {label}: device_ms {ex['device_ms']} "
+                             f"against dur_s {ex['dur_s']}")
+    metric = [r for r in rows if r["kind"] == "metric"]
+    if ([r["value"] for r in metric] != [float(v) for v in on[0].rels]
+            or [r["step"] for r in metric] != list(range(len(on[0].rels)))):
+        raise AssertionError(f"[obs] {label}: metric rows differ from rels")
+    names = {r["name"] for r in rows if r["kind"] == "event"}
+    if not {"launches", "provenance"} <= names:
+        raise AssertionError(f"[obs] {label}: events {names}")
+    if on[3]["streams"] != 1:
+        raise AssertionError(f"[obs] {label}: {on[3]['streams']} streams")
+    log(f"[obs] {label}: warm wall recorded {on[2]!r} s against unrecorded "
+        f"{off[2]!r} s (first pair {runs[1][2]!r} / {runs[0][2]!r} s); "
+        f"execute span {ex['dur_s']!r} s, device_ms {ex['device_ms']!r}, "
+        f"vr_epoch launches {launches}, {len(metric)} metric rows = rels, "
+        f"{on[3]['events']} CUDA events made recorded, 0 unrecorded")
+    return dict(label=label, launches=launches, wall_s=off[2],
+                recorded_wall_s=on[2], first_wall_s=runs[0][2],
+                first_recorded_wall_s=runs[1][2], span_dur_s=ex["dur_s"],
+                device_ms=ex["device_ms"], metric_rows=len(metric))
+
+
+def obs_split(torch, kernels, label, spec_kw, cfg, draws, reps=5):
+    """Where a recorded run's extra wall goes: the run unrecorded,
+    recorded, and recorded with the metric stream off (the span, the
+    events and the rows kept), ``reps`` times each in turn; a
+    ``[obs] split`` line with each one's median wall."""
+    import statistics
+
+    from repro_torch.obs import stream
+
+    def no_stream(*args):
+        return None
+
+    walls = {"unrecorded": [], "recorded": [], "recorded, no stream": []}
+    for i in range(reps):
+        for kind in walls:
+            path = None if kind == "unrecorded" else OBS_OUT / "split.jsonl"
+            opened = stream.open_stream
+            if kind == "recorded, no stream":
+                stream.open_stream = no_stream
+            try:
+                walls[kind].append(obs_solve(torch, kernels, spec_kw, cfg,
+                                             draws, path)[2])
+            finally:
+                stream.open_stream = opened
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    log(f"[obs] split {label}: median wall of {reps} "
+        + ", ".join(f"{k} {v!r} s" for k, v in med.items()))
+    return med
+
+
+def obs_row_cost(rows=200):
+    """Seconds to write and flush one JSONL row (the recorder flushes
+    every row), timed over ``rows`` metric rows into ``OBS_OUT``."""
+    from repro_torch import obs
+
+    with obs.recording(str(OBS_OUT / "rows.jsonl")) as rec:
+        t0 = time.perf_counter()
+        for i in range(rows):
+            rec.metric("probe", i, 0.0)
+        dt = (time.perf_counter() - t0) / rows
+    log(f"[obs] one JSONL row written and flushed: {dt * 1e6:.1f} us "
+        f"(mean of {rows})")
+    return dt
+
+
+def obs_build_cold(torch):
+    """The kernels/build span cold: vr_epoch's source built under a
+    recorder into a fresh --compile-cache directory. Returns the
+    directory and the span."""
+    import shutil
+
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.vr_update import epoch as vr_epoch
+    from repro_torch.launch.compile_cache import enable_compile_cache
+    from repro_torch.obs import schema
+
+    cache, path = OBS_OUT / "cc", OBS_OUT / "build.jsonl"
+    shutil.rmtree(cache, ignore_errors=True)
+    home = build.BUILD_DIR
+    try:
+        enable_compile_cache(str(cache))
+        with obs.recording(str(path)):
+            build.build(vr_epoch.SOURCE)
+    finally:
+        build.BUILD_DIR = home
+    cold = [r for r in schema.load_rows(str(path))
+            if r["name"] == "kernels/build"]
+    if not (len(cold) == 1 and cold[0]["built"] == [vr_epoch.SOURCE.name]):
+        raise AssertionError(f"[obs] cold kernels/build span: {cold}")
+    return cache, cold[0]
+
+
+# a second process on the cold build's directory: it must compile nothing
+OBS_WARM_BUILD = (
+    "import sys; from repro_torch import obs; "
+    "from repro_torch.kernels import build; "
+    "from repro_torch.kernels.vr_update import epoch; "
+    "from repro_torch.launch.compile_cache import enable_compile_cache; "
+    "enable_compile_cache(sys.argv[1]); obs.enable(sys.argv[2]); "
+    "build.build(epoch.SOURCE); obs.disable()")
+
+
+def _env():
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(_src_dir())] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def obs_start(label, argv):
+    """Start ``python argv...`` from the checkout's root, its output into
+    ``OBS_OUT/<label>.out``; returns (label, process, start time)."""
+    out = open(OBS_OUT / f"{label}.out", "w")
+    proc = subprocess.Popen([sys.executable, *argv], stdout=out,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=_env(), cwd=str(ROOT))
+    out.close()
+    return label, proc, time.perf_counter()
+
+
+def obs_wait(job, timeout=600):
+    """Wait for a process of :func:`obs_start`; raises with its output's
+    tail unless it exits 0. Returns its wall time."""
+    label, proc, t0 = job
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    tail = "\n".join((OBS_OUT / f"{label}.out").read_text()
+                     .splitlines()[-14:])
+    if proc.returncode != 0:
+        raise AssertionError(f"[obs] {label} exited {proc.returncode}:\n"
+                             f"{tail}")
+    log(f"[obs] {label} in {wall:.1f} s:\n{tail}")
+    return wall
+
+
+def obs_trace(path):
+    """(events, kernel events) of a torch.profiler Chrome trace: it must
+    parse; kernel events show the profiler saw device time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return len(events), sum(e.get("cat") == "kernel" for e in events)
+
+
+def obs_record(label, record, prof):
+    """A launcher's record and traces: the record must pass ``launch.obs
+    validate`` and every trace parse. Returns (rows, traces' (events,
+    kernel events))."""
+    from repro_torch.launch import obs as obs_cli_mod
+    from repro_torch.obs import schema
+
+    if obs_cli_mod.main(["validate", str(record)]) != 0:
+        raise AssertionError(f"[obs] {label}: {record} does not validate")
+    traces = [obs_trace(t) for t in sorted(prof.glob("trace-*.json"))]
+    if not traces:
+        raise AssertionError(f"[obs] {label}: no trace under {prof}")
+    log(f"[obs] {label}: {len(traces)} trace(s), (events, kernel events) "
+        f"{traces}")
+    return schema.load_rows(str(record)), traces
+
+
+def phase_obs(torch, kernels):
+    """Phase 6b: telemetry. Fused runs of Algorithms 2, 3 (speeds 1..8)
+    and stale D-SAGA on ``dist-toy-logistic``, each unrecorded and
+    recorded on the same draws (``obs_check_run``) and the cold
+    kernels/build span, alone on the card; then three processes at once:
+    a second build on the same --compile-cache directory, the solver's
+    command line sweeping the registry with --obs, --json and --profile,
+    and the train launcher at Mamba2-130M's full width with --obs and
+    --profile."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.obs import schema
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()        # the train launcher needs the card
+    shutil.rmtree(OBS_OUT, ignore_errors=True)
+    OBS_OUT.mkdir(parents=True)
+    cfg, runs = obs_runs(torch)
+    recs = [obs_check_run(torch, kernels, *run[:2], cfg, *run[2:])
+            for run in runs]
+    split = obs_split(torch, kernels, *runs[-1][:2], cfg, runs[-1][2])
+    row_s = obs_row_cost()
+    cache, cold = obs_build_cold(torch)
+
+    warm_path = OBS_OUT / "build_warm.jsonl"
+    sweep_json, sweep_rec = OBS_OUT / "sweep.json", OBS_OUT / "sweep.jsonl"
+    train_rec = OBS_OUT / "train.jsonl"
+    jobs = [obs_start("build-warm", ["-c", OBS_WARM_BUILD, str(cache),
+                                     str(warm_path)]),
+            obs_start("solve-sweep", [
+                "-m", "repro_torch.launch.solve", *OBS_SWEEP, "--json",
+                str(sweep_json), "--obs", str(sweep_rec), "--profile",
+                str(OBS_OUT / "solve-sweep-prof")]),
+            obs_start("train-mamba2", [
+                "-m", "repro_torch.launch.train", *OBS_TRAIN, "--obs",
+                str(train_rec), "--profile",
+                str(OBS_OUT / "train-mamba2-prof")])]
+    walls = [obs_wait(job) for job in jobs]
+
+    warm = [r for r in schema.load_rows(str(warm_path))
+            if r["name"] == "kernels/build"]
+    if not (len(warm) == 1 and warm[0]["built"] == []
+            and warm[0]["cached"] == 1):
+        raise AssertionError(f"[obs] second process's kernels/build span: "
+                             f"{warm}")
+    log(f"[obs] kernels/build of vr_epoch.cu: cold {cold['dur_s']!r} s "
+        f"(built {cold['built']}), a second process on the same "
+        f"--compile-cache {warm[0]['dur_s']!r} s (built nothing, "
+        f"{warm[0]['cached']} cached)")
+
+    rows, traces = obs_record("solve-sweep", sweep_rec,
+                              OBS_OUT / "solve-sweep-prof")
+    with open(sweep_json) as f:
+        prov = json.load(f)
+    execute = [r for r in rows if r["kind"] == "span"
+               and r["name"].endswith("/execute")]
+    if not (len(prov) == 11 and len(execute) == 11
+            and all(np.isfinite(r["final_rel"]) for r in prov)
+            and all(r["device"] == torch.cuda.get_device_name(0)
+                    for r in prov)
+            and all(0.0 < r["device_ms"] <= r["dur_s"] * 1e3
+                    for r in execute)):
+        raise AssertionError(f"[obs] solve sweep: {len(prov)} rows, "
+                             f"{len(execute)} execute spans")
+    sweep = dict(wall_s=walls[1], traces=traces,
+                 device_ms={r["name"]: r["device_ms"] for r in execute},
+                 dur_s={r["name"]: r["dur_s"] for r in execute})
+
+    rows, traces = obs_record("train-mamba2", train_rec,
+                              OBS_OUT / "train-mamba2-prof")
+    names = [r["name"] for r in rows]
+    epochs = [r for r in rows if r["name"] == "train_epoch"]
+    if not ("train/epoch/execute" in names and "train/eval" in names
+            and "train_done" in names and len(epochs) == 1
+            and all(np.isfinite(r["loss"]) for r in epochs)):
+        raise AssertionError(f"[obs] train launcher record: {names}")
+    first = next(r for r in rows if r["name"] == "train/epoch/execute")
+    train = dict(wall_s=walls[2], traces=traces,
+                 epoch_s=first["dur_s"], epoch_device_ms=first["device_ms"],
+                 launches=first["launches"],
+                 losses=[r["loss"] for r in epochs])
+    log(f"[obs] train launcher: its epoch {first['dur_s']!r} s (device "
+        f"{first['device_ms']!r} ms, launches {first['launches']}), "
+        f"losses {train['losses']}")
+    log(f"[path] phase 6b (obs) in {time.perf_counter() - t0:.1f} s")
+    return dict(runs=recs, split=split, row_s=row_s, build=dict(cold_s=cold["dur_s"],
+                                      warm_s=warm[0]["dur_s"]),
+                sweep=sweep, train=train,
+                launches=sum(4 * r["launches"] for r in recs))
+
+
 def graph_ms(torch, fn, calls=200, replays=20):
     """Device time per call of ``fn``: ``calls`` back-to-back calls
     captured in one CUDA graph, replayed, timed with CUDA events."""
@@ -2363,6 +2770,15 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--obs" in sys.argv[1:]:
+        telemetry = phase_obs(torch, kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"obs": telemetry}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sparse" in sys.argv[1:]:
         sparse = phase_sparse(torch, kernels)
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -2392,6 +2808,7 @@ def main():
     sparse = phase_sparse(torch, kernels)
     spmd = phase_spmd(torch, kernels)
     lm = phase_lm(torch, kernels)
+    telemetry = phase_obs(torch, kernels)
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                (2, model.ParamLayout(mamba_full).n),
@@ -2413,7 +2830,8 @@ def main():
             phase_profile_lm(torch, "mamba2-130m L=24 W=2", mcfg, mtcfg, 2,
                              fused=fused)
     total = dict.fromkeys(kernels, 0)
-    total["vr_epoch"] = sum(p["launches"] for p in paths)
+    total["vr_epoch"] = (sum(p["launches"] for p in paths)
+                         + telemetry["launches"])
     total["lazy_epoch"] = sum(r["launches"] for r in sparse["runs"])
     for run in lm:
         for name, n in run["counts"].items():
@@ -2458,7 +2876,7 @@ def main():
                                      "unfused_wall_s", "peak_bytes",
                                      "max_diff")}
                   for p in paths],
-        "spmd_paths": spmd["runs"]}, {
+        "spmd_paths": spmd["runs"], "telemetry": telemetry}, {
         "name": "lazy_epoch", "route": "cuda",
         "source": "src/repro_torch/kernels/lazy_epoch/csrc/lazy_epoch.cu",
         "replaces": "src/repro/prox/lazy.py:215 (the jitted scan "

@@ -27,6 +27,7 @@ from repro_torch.core.distributed import (ShardedProblem, _as_index,
                                           _generator, _local_saga_steps,
                                           _randint, _randperms,
                                           _svrg_anchors)
+from repro_torch.obs import stage as obs_stage
 from repro_torch.prox import operators as proxops
 
 
@@ -66,14 +67,20 @@ def run_sgd(prob: Problem, *, eta: float, epochs: int, orders=None,
         orders = draw_sgd_orders(_generator(device, seed), prob.n, epochs)
     perms = _as_index(orders, (epochs, prob.n), "per-epoch permutations",
                       device, prob.n)
-    x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
-    g0 = convex.grad_norm0(prob)
-    rels = []
-    for ep in range(epochs):
-        x = _sgd_steps(prob.A[None], prob.b[None], prob.lam, prob.kind,
-                       x[None], eta / (1.0 + decay * ep), perms[ep][None])[0]
-        rels.append(convex.rel_grad_norm(prob, x, g0))
-    return x, torch.stack(rels)
+
+    def run_rounds():
+        x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
+        g0 = convex.grad_norm0(prob)
+        rels = []
+        for ep in range(epochs):
+            x = _sgd_steps(prob.A[None], prob.b[None], prob.lam,
+                           prob.kind, x[None], eta / (1.0 + decay * ep),
+                           perms[ep][None])[0]
+            rels.append(convex.rel_grad_norm(prob, x, g0))
+        return x, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/sgd",
+                                 _device=device)
 
 
 def draw_svrg_orders(gen: torch.Generator, n: int, epochs: int, inner: int,
@@ -117,16 +124,21 @@ def run_svrg(prob: Problem, *, eta: float, epochs: int, inner: int = 0,
                     prob.n)
     snap = (_as_index(orders[1], (epochs,), "anchor indices", device, inner)
             .tolist() if snapshot == "rand" else [None] * epochs)
-    x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
-    g0 = convex.grad_norm0(prob, prox=px, eta=eta)
-    rels = []
-    for ep in range(epochs):
-        x = _svrg_anchors(prob.A[None], prob.b[None], prob.lam, prob.kind,
-                          x, convex.full_grad(prob, x), eta, idx[ep][None],
-                          fused=fused_t, prox=px, snapshot=snapshot,
-                          r=snap[ep])[0]
-        rels.append(convex.rel_grad_norm(prob, x, g0, prox=px, eta=eta))
-    return x, torch.stack(rels)
+
+    def run_rounds():
+        x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
+        g0 = convex.grad_norm0(prob, prox=px, eta=eta)
+        rels = []
+        for ep in range(epochs):
+            x = _svrg_anchors(prob.A[None], prob.b[None], prob.lam, prob.kind,
+                              x, convex.full_grad(prob, x), eta, idx[ep][None],
+                              fused=fused_t, prox=px, snapshot=snapshot,
+                              r=snap[ep])[0]
+            rels.append(convex.rel_grad_norm(prob, x, g0, prox=px, eta=eta))
+        return x, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/svrg",
+                                 _device=device)
 
 
 def draw_saga_orders(gen: torch.Generator, n: int, epochs: int):
@@ -155,18 +167,24 @@ def run_saga(prob: Problem, *, eta: float, epochs: int, orders=None,
         orders = draw_saga_orders(_generator(device, seed), prob.n, epochs)
     idx = _as_index(orders, (epochs, prob.n), "sample indices", device,
                     prob.n)
-    x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
-    g0 = convex.grad_norm0(prob, prox=px, eta=eta)
-    table = convex.scalar_residual_all(prob, x)
-    gbar = convex.data_grad_from_scalars(prob, table)
-    x, table, gbar = x[None], table[None], gbar[None]
-    rels = []
-    for ep in range(epochs):
-        x, table, gbar = _local_saga_steps(
-            prob.A[None], prob.b[None], prob.lam, prob.kind, x, table, gbar,
-            eta, prob.n, idx[ep][None], fused=fused_t, prox=px)
-        rels.append(convex.rel_grad_norm(prob, x[0], g0, prox=px, eta=eta))
-    return x[0], torch.stack(rels)
+
+    def run_rounds():
+        x = torch.zeros(prob.d, dtype=prob.A.dtype, device=device)
+        g0 = convex.grad_norm0(prob, prox=px, eta=eta)
+        table = convex.scalar_residual_all(prob, x)
+        gbar = convex.data_grad_from_scalars(prob, table)
+        x, table, gbar = x[None], table[None], gbar[None]
+        rels = []
+        for ep in range(epochs):
+            x, table, gbar = _local_saga_steps(
+                prob.A[None], prob.b[None], prob.lam, prob.kind, x, table,
+                gbar, eta, prob.n, idx[ep][None], fused=fused_t, prox=px)
+            rels.append(convex.rel_grad_norm(prob, x[0], g0, prox=px,
+                                             eta=eta))
+        return x[0], torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/saga",
+                                 _device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -206,16 +224,21 @@ def run_dist_sgd(sp: ShardedProblem, *, eta: float, rounds: int,
                                       rounds, tau)
     idx = _as_index(orders, (rounds, sp.p, tau), "sample indices", device,
                     sp.ns)
-    merged = sp.merged()
-    x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
-    g0 = convex.grad_norm0(merged)
-    rels = []
-    for r in range(rounds):
-        eta_r = eta / (1.0 + decay * r * tau) ** 0.5
-        x = _sgd_steps(sp.A, sp.b, sp.lam, sp.kind, x.expand(sp.p, -1),
-                       eta_r, idx[r]).mean(0)
-        rels.append(convex.rel_grad_norm(merged, x, g0))
-    return x, torch.stack(rels)
+
+    def run_rounds():
+        merged = sp.merged()
+        x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
+        g0 = convex.grad_norm0(merged)
+        rels = []
+        for r in range(rounds):
+            eta_r = eta / (1.0 + decay * r * tau) ** 0.5
+            x = _sgd_steps(sp.A, sp.b, sp.lam, sp.kind, x.expand(sp.p, -1),
+                           eta_r, idx[r]).mean(0)
+            rels.append(convex.rel_grad_norm(merged, x, g0))
+        return x, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/dist_sgd",
+                                 _device=device)
 
 
 def draw_easgd_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
@@ -257,25 +280,30 @@ def run_easgd(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 16,
                                    rounds, tau)
     idx = _as_index(orders, (rounds, p, steps_per_round, tau),
                     "sample indices", device, sp.ns)
-    merged = sp.merged()
-    xc = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
-    xs = torch.zeros((p, sp.d), dtype=sp.A.dtype, device=device)
-    g0 = convex.grad_norm0(merged)
-    rels = []
-    for r in range(rounds):
-        eta_r = eta / (1.0 + decay * r * sp.ns) ** 0.5
-        xc_view = xc.expand(p, -1)
-        moves = torch.zeros_like(xs)
-        for j in range(steps_per_round):
-            xs = _sgd_steps(sp.A, sp.b, sp.lam, sp.kind, xs, eta_r,
-                            idx[r, :, j])
-            diff = xs - xc_view
-            xs = xs - alpha * diff
-            xc_view = xc_view + alpha * diff
-            moves = moves + diff
-        xc = xc + alpha * moves.sum(0) / p
-        rels.append(convex.rel_grad_norm(merged, xc, g0))
-    return xc, torch.stack(rels)
+
+    def run_rounds():
+        merged = sp.merged()
+        xc = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
+        xs = torch.zeros((p, sp.d), dtype=sp.A.dtype, device=device)
+        g0 = convex.grad_norm0(merged)
+        rels = []
+        for r in range(rounds):
+            eta_r = eta / (1.0 + decay * r * sp.ns) ** 0.5
+            xc_view = xc.expand(p, -1)
+            moves = torch.zeros_like(xs)
+            for j in range(steps_per_round):
+                xs = _sgd_steps(sp.A, sp.b, sp.lam, sp.kind, xs, eta_r,
+                                idx[r, :, j])
+                diff = xs - xc_view
+                xs = xs - alpha * diff
+                xc_view = xc_view + alpha * diff
+                moves = moves + diff
+            xc = xc + alpha * moves.sum(0) / p
+            rels.append(convex.rel_grad_norm(merged, xc, g0))
+        return xc, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/easgd",
+                                 _device=device)
 
 
 def draw_ps_svrg_orders(gen: torch.Generator, p: int, ns: int, rounds: int,
@@ -312,22 +340,27 @@ def run_ps_svrg(sp: ShardedProblem, *, eta: float, rounds: int,
                                      rounds, epoch_mult)
     idx = _as_index(orders, (rounds, inner, sp.p), "sample indices", device,
                     sp.ns)
-    merged = sp.merged()
-    x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
-    g0 = convex.grad_norm0(merged)
-    rels = []
-    for r in range(rounds):
-        xbar = x
-        gbar = convex.full_grad(merged, xbar)
-        order = idx[r].T                              # (p, inner)
-        rows, labels = convex.gather_epoch(sp.A, sp.b, order)
-        sbar = convex._pointwise_residual(torch.linalg.vecdot(rows, xbar),
-                                          labels, sp.kind)
-        for t in range(inner):
-            a = rows[:, t]
-            s = convex._pointwise_residual(a @ x, labels[:, t], sp.kind)
-            g = ((s - sbar[:, t])[:, None] * a + gbar
-                 + 2.0 * sp.lam * (x - xbar))
-            x = x - eta * g.mean(0)
-        rels.append(convex.rel_grad_norm(merged, x, g0))
-    return x, torch.stack(rels)
+
+    def run_rounds():
+        merged = sp.merged()
+        x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
+        g0 = convex.grad_norm0(merged)
+        rels = []
+        for r in range(rounds):
+            xbar = x
+            gbar = convex.full_grad(merged, xbar)
+            order = idx[r].T                              # (p, inner)
+            rows, labels = convex.gather_epoch(sp.A, sp.b, order)
+            sbar = convex._pointwise_residual(torch.linalg.vecdot(rows, xbar),
+                                              labels, sp.kind)
+            for t in range(inner):
+                a = rows[:, t]
+                s = convex._pointwise_residual(a @ x, labels[:, t], sp.kind)
+                g = ((s - sbar[:, t])[:, None] * a + gbar
+                     + 2.0 * sp.lam * (x - xbar))
+                x = x - eta * g.mean(0)
+            rels.append(convex.rel_grad_norm(merged, x, g0))
+        return x, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/ps_svrg",
+                                 _device=device)

@@ -31,6 +31,8 @@ from repro_torch.core.convex import Problem
 from repro_torch.core.distributed import (_as_orders, _generator,
                                           _local_centralvr_epoch,
                                           _local_sgd_epoch)
+from repro_torch.obs import stage as obs_stage
+from repro_torch.obs import stream as obs_stream
 from repro_torch.prox import operators as proxops
 
 
@@ -162,13 +164,24 @@ def run(prob: Problem, *, eta: float, epochs: int, orders=None,
     # unfused body
     fused_t = fusedmod.make_params(spec.fused, eta, prob.lam, device,
                                    prox=px)
-    state = init_state(prob, eta, init, prox=px, fused=fused_t, x0=x0)
-    g0 = convex.grad_norm0(prob, prox=px, eta=eta)
     step = epoch if sampling == "permutation" else epoch_uniform
-    rels = []
-    for order in per:
-        state = step(prob, state, eta, order, fused=fused_t, prox=px)
-        rels.append(convex.rel_grad_norm(prob, state.x, g0, prox=px,
-                                         eta=eta))
+
+    def run_epochs():
+        state = init_state(prob, eta, init, prox=px, fused=fused_t, x0=x0)
+        g0 = convex.grad_norm0(prob, prox=px, eta=eta)
+        stream = obs_stream.open_stream("rel", epochs, device)
+        rels = []
+        for e, order in enumerate(per):
+            state = step(prob, state, eta, order, fused=fused_t, prox=px)
+            rels.append(convex.rel_grad_norm(prob, state.x, g0, prox=px,
+                                             eta=eta))
+            if stream is not None:
+                stream.push(e, rels[-1])
+        if stream is not None:
+            stream.close()
+        return state, torch.stack(rels)
+
+    state, rels = obs_stage.staged_call(run_epochs, _label="solve/centralvr",
+                                        _device=device)
     grad_evals = prob.n * np.arange(2, epochs + 2)
-    return state, torch.stack(rels), grad_evals
+    return state, rels, grad_evals

@@ -36,6 +36,8 @@ import torch
 
 from repro_torch.core import convex, runtime
 from repro_torch.core.convex import Problem
+from repro_torch.obs import stage as obs_stage
+from repro_torch.obs import stream as obs_stream
 from repro_torch.prox import operators as proxops
 
 
@@ -297,14 +299,25 @@ def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
                            device, sp.ns)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
-    st = sync_init(sp, eta, init, prox=px, fused=fused_t)
-    merged = sp.merged()
-    g0 = convex.grad_norm0(merged, prox=px, eta=eta)
-    rels = []
-    for r in range(rounds):
-        st = sync_round(sp, st, eta, per[r], fused=fused_t, prox=px)
-        rels.append(convex.rel_grad_norm(merged, st.x, g0, prox=px, eta=eta))
-    return st, torch.stack(rels)
+
+    def run_rounds():
+        st = sync_init(sp, eta, init, prox=px, fused=fused_t)
+        merged = sp.merged()
+        g0 = convex.grad_norm0(merged, prox=px, eta=eta)
+        stream = obs_stream.open_stream("rel", rounds, device)
+        rels = []
+        for r in range(rounds):
+            st = sync_round(sp, st, eta, per[r], fused=fused_t, prox=px)
+            rels.append(convex.rel_grad_norm(merged, st.x, g0, prox=px,
+                                             eta=eta))
+            if stream is not None:
+                stream.push(r, rels[-1])
+        if stream is not None:
+            stream.close()
+        return st, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/centralvr_sync",
+                                 _device=device)
 
 
 def _put(t: torch.Tensor, s: int, row: torch.Tensor) -> torch.Tensor:
@@ -386,6 +399,7 @@ def _run_events(sp: ShardedProblem, st, event, schedule, draws, eta: float,
     merged = sp.merged()
     g0 = convex.grad_norm0(merged, prox=px, eta=eta)
     sched, draws = runtime.per_round(schedule, draws, sp.p)
+    stream = obs_stream.open_stream("rel", rounds, sp.A.device)
     rels = []
     for r in range(rounds):
         for s, draw in zip(sched[r].tolist(), draws[r]):
@@ -393,6 +407,10 @@ def _run_events(sp: ShardedProblem, st, event, schedule, draws, eta: float,
         rels.append(convex.rel_grad_norm(
             merged, proxops.apply_prox(px, st.x_c, eta), g0, prox=px,
             eta=eta))
+        if stream is not None:
+            stream.push(r, rels[-1])
+    if stream is not None:
+        stream.close()
     return st, torch.stack(rels)
 
 
@@ -432,12 +450,17 @@ def run_async(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
         names=("init", "per-event"))
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
-    st = async_init(sp, eta, init, prox=px, fused=fused_t)
     schedule = runtime.event_schedule(sp.p, rounds, spec.speeds)
-    return _run_events(
-        sp, st, lambda st, s, perm: async_event(sp, st, s, eta, perm,
-                                                fused=fused_t, prox=px),
-        schedule, events, eta, px, rounds)
+
+    def run_rounds():
+        st = async_init(sp, eta, init, prox=px, fused=fused_t)
+        return _run_events(
+            sp, st, lambda st, s, perm: async_event(sp, st, s, eta, perm,
+                                                    fused=fused_t, prox=px),
+            schedule, events, eta, px, rounds)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/centralvr_async",
+                                 _device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -529,18 +552,29 @@ def run_dsvrg(sp: ShardedProblem, *, eta: float, rounds: int, tau: int = 0,
                     device, sp.ns)
     snap = (_as_index(orders[1], (rounds,), "anchor indices", device, tau)
             .tolist() if snapshot == "rand" else [None] * rounds)
-    merged = sp.merged()
-    x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
-    g0 = convex.grad_norm0(merged, prox=px, eta=eta)
-    rels = []
-    for r in range(rounds):
-        anchors = _svrg_anchors(sp.A, sp.b, sp.lam, sp.kind, x,
-                                convex.full_grad(merged, x), eta, idx[r],
-                                fused=fused_t, prox=px, snapshot=snapshot,
-                                r=snap[r])
-        x = proxops.apply_prox(px, anchors.mean(0), eta)
-        rels.append(convex.rel_grad_norm(merged, x, g0, prox=px, eta=eta))
-    return x, torch.stack(rels)
+
+    def run_rounds():
+        merged = sp.merged()
+        x = torch.zeros(sp.d, dtype=sp.A.dtype, device=device)
+        g0 = convex.grad_norm0(merged, prox=px, eta=eta)
+        stream = obs_stream.open_stream("rel", rounds, device)
+        rels = []
+        for r in range(rounds):
+            anchors = _svrg_anchors(sp.A, sp.b, sp.lam, sp.kind, x,
+                                    convex.full_grad(merged, x), eta, idx[r],
+                                    fused=fused_t, prox=px,
+                                    snapshot=snapshot, r=snap[r])
+            x = proxops.apply_prox(px, anchors.mean(0), eta)
+            rels.append(convex.rel_grad_norm(merged, x, g0, prox=px,
+                                             eta=eta))
+            if stream is not None:
+                stream.push(r, rels[-1])
+        if stream is not None:
+            stream.close()
+        return x, torch.stack(rels)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/dsvrg",
+                                 _device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -720,9 +754,15 @@ def run_dsaga(sp: ShardedProblem, *, eta: float, rounds: int,
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
     stale = spec.fetch == "stale"
     event = dsaga_event_stale if stale else dsaga_event
-    st = dsaga_init_stale(sp) if stale else dsaga_init(sp)
     schedule = runtime.event_schedule(sp.p, rounds, spec.speeds)
-    return _run_events(
-        sp, st, lambda st, s, i: event(sp, st, s, eta, i, literal_scaling,
-                                       fused=fused_t, prox=px),
-        schedule, idx, eta, px, rounds)
+
+    def run_rounds():
+        st = dsaga_init_stale(sp) if stale else dsaga_init(sp)
+        return _run_events(
+            sp, st, lambda st, s, i: event(sp, st, s, eta, i,
+                                           literal_scaling, fused=fused_t,
+                                           prox=px),
+            schedule, idx, eta, px, rounds)
+
+    return obs_stage.staged_call(run_rounds, _label="solve/dsaga",
+                                 _device=device)

@@ -408,8 +408,11 @@ class RunResult:
     bytes-per-collective model of the run (``obs/comms.py``) at the run's
     element size; under ``backend="spmd"`` also what this rank's
     collectives carried, ``carried_bytes`` (result-shape bytes) in
-    ``collectives`` calls. Under ``backend="spmd"`` ``x`` and ``rels`` are
-    replicated and ``state`` holds this rank's shard of the tables.
+    ``collectives`` calls. ``staleness`` is the fetch-staleness and
+    wave-utilization record of the asynchronous algorithms' event schedule
+    (``obs/staleness.py``; None for the bulk-synchronous ones). Under
+    ``backend="spmd"`` ``x`` and ``rels`` are replicated and ``state``
+    holds this rank's shard of the tables.
     """
 
     spec: RunSpec
@@ -421,10 +424,18 @@ class RunResult:
     device: str
     grad_evals: Optional[np.ndarray] = None
     comms: Optional[dict] = None
+    staleness: Optional[dict] = None
+
+    @property
+    def final_rel(self) -> float:
+        return float(self.rels[-1])
 
     def provenance(self, tail: int = 8) -> dict:
         """JSON-able record of exactly what configuration produced this
-        result."""
+        result. The row shape is golden (``obs/schema.py:
+        PROVENANCE_KEYS``); extend both together."""
+        from repro_torch.obs.recorder import SCHEMA_VERSION
+
         rels = np.asarray(self.rels, dtype=float)
         return {
             "spec": dataclasses.asdict(self.spec),
@@ -435,6 +446,8 @@ class RunResult:
             "launches": dict(self.launches),
             "device": self.device,
             "comms": dict(self.comms) if self.comms else None,
+            "staleness": dict(self.staleness) if self.staleness else None,
+            "schema_v": SCHEMA_VERSION,
         }
 
 
@@ -534,12 +547,11 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
       ps_svrg          indices (R, 2*ns, p): one per worker per server
                        step
     """
-    from repro_torch.core import convex, distributed
-    from repro_torch.kernels import resolve_device
-    from repro_torch.kernels.lazy_epoch import kernel as lazy_kernel
-    from repro_torch.kernels.vr_update import epoch as vr_epoch
-    from repro_torch.kernels.vr_update import kernel as vr_kernel
+    from repro_torch.core import convex, distributed, runtime
+    from repro_torch.kernels import launch_counts, resolve_device
     from repro_torch.obs import comms as obs_comms
+    from repro_torch.obs import recorder as obs_recorder
+    from repro_torch.obs import staleness as obs_staleness
 
     entry = REGISTRY[spec.algo]
     spmd_run = spec.backend == "spmd"
@@ -556,24 +568,26 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
                              "backend='spmd'; this spec runs backend="
                              f"{spec.backend!r}")
         device = resolve_device(device, "repro_torch.solve")
-    problem = _coerce_problem(spec, problem, device, place=not spmd_run)
-    eta = spec.eta
-    if eta is None:
-        merged = (problem.merged()
-                  if isinstance(problem, distributed.ShardedProblem)
-                  else problem)
-        eta = convex.auto_eta(merged)
+    with obs_recorder.span("solve/build", algo=spec.algo,
+                           backend=spec.backend):
+        problem = _coerce_problem(spec, problem, device, place=not spmd_run)
+        eta = spec.eta
+        if eta is None:
+            merged = (problem.merged()
+                      if isinstance(problem, distributed.ShardedProblem)
+                      else problem)
+            eta = convex.auto_eta(merged)
 
-    counters = {"vr_update": vr_kernel, "vr_epoch": vr_epoch,
-                "lazy_epoch": lazy_kernel}
-    launches0 = {k: m.launches for k, m in counters.items()}
+    launches0 = launch_counts()
     carried0 = (group.carried_bytes, group.collectives) if spmd_run else None
     t0 = time.perf_counter()
     state, x, rels, grad_evals = entry.call(spec, problem, eta, orders,
                                             group)
     rels = rels.cpu().numpy()
     wall = time.perf_counter() - t0
-    launches = {k: m.launches - launches0[k] for k, m in counters.items()}
+    counts = launch_counts()
+    launches = {k: counts[k] - launches0[k]
+                for k in ("vr_update", "vr_epoch", "lazy_epoch")}
 
     if spec.metric_every > 1 and rels.size:
         idx = np.arange(spec.metric_every - 1, rels.size, spec.metric_every)
@@ -588,11 +602,21 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
     if spmd_run:
         comms["carried_bytes"] = group.carried_bytes - carried0[0]
         comms["collectives"] = group.collectives - carried0[1]
+    staleness = None
+    if entry.caps.is_async:
+        staleness = obs_staleness.staleness_stats(
+            runtime.event_schedule(spec.p, spec.rounds, spec.speeds), spec.p)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
-    return RunResult(spec=resolved, rels=rels, x=x.cpu().numpy(),
-                     state=state, wall_s=wall, launches=launches,
-                     device=name, grad_evals=grad_evals, comms=comms)
+    res = RunResult(spec=resolved, rels=rels, x=x.cpu().numpy(),
+                    state=state, wall_s=wall, launches=launches,
+                    device=name, grad_evals=grad_evals, comms=comms,
+                    staleness=staleness)
+    rec = obs_recorder.active()
+    if rec is not None:
+        rec.event("launches", **launches)
+        rec.event("provenance", **res.provenance())
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -42,11 +42,14 @@ rank's CUDA tensors directly.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import convex, runtime
 from repro_torch.core.convex import Problem
 from repro_torch.launch.mesh import WorkerGroup, check_world
+from repro_torch.obs import stage as obs_stage
 from repro_torch.prox import operators as proxops
 
 
@@ -62,6 +65,21 @@ def _check_group(group, p: int) -> WorkerGroup:
         group = mesh.make_worker_mesh(p)
     check_world(group.world, p)
     return group
+
+
+def _spmd_span(label: str):
+    """Run a runner ``fn(sp, ..., group=...)`` through
+    ``obs.staged_call``: with a recorder active, one ``<label>/execute``
+    span on this rank and the ``comms_measured`` event of its
+    collectives."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(sp, *, group=None, **kw):
+            g = _check_group(group, sp.p)
+            return obs_stage.staged_call(fn, sp, group=g, _label=label,
+                                         _device=g.device, _group=g, **kw)
+        return run
+    return wrap
 
 
 def _shard(sp, g: WorkerGroup):
@@ -176,6 +194,7 @@ def _fused(flag, eta, lam, g: WorkerGroup, px):
 # CentralVR-Sync (Algorithm 2)
 # ---------------------------------------------------------------------------
 
+@_spmd_span("spmd/centralvr_sync")
 def run_sync(sp, *, eta: float, rounds: int, orders=None, seed: int = 0,
              group=None, fused=False, prox=None):
     """Algorithm 2 with one worker per rank: the init epoch and every
@@ -216,6 +235,7 @@ def run_sync(sp, *, eta: float, rounds: int, orders=None, seed: int = 0,
 # Distributed SVRG (Algorithm 4)
 # ---------------------------------------------------------------------------
 
+@_spmd_span("spmd/dsvrg")
 def run_dsvrg(sp, *, eta: float, rounds: int, tau: int = 0, orders=None,
               seed: int = 0, group=None, fused=False, prox=None,
               snapshot: str = "last"):
@@ -256,6 +276,7 @@ def run_dsvrg(sp, *, eta: float, rounds: int, tau: int = 0, orders=None,
 # Minibatch baselines
 # ---------------------------------------------------------------------------
 
+@_spmd_span("spmd/dist_sgd")
 def run_dist_sgd(sp, *, eta: float, rounds: int, tau: int = 0,
                  decay: float = 0.0, orders=None, seed: int = 0,
                  group=None):
@@ -283,6 +304,7 @@ def run_dist_sgd(sp, *, eta: float, rounds: int, tau: int = 0,
     return x, torch.stack(rels)
 
 
+@_spmd_span("spmd/easgd")
 def run_easgd(sp, *, eta: float, rounds: int, tau: int = 16,
               rho: float = 1.0, decay: float = 0.0, orders=None,
               seed: int = 0, group=None):
@@ -322,6 +344,7 @@ def run_easgd(sp, *, eta: float, rounds: int, tau: int = 16,
     return xc, torch.stack(rels)
 
 
+@_spmd_span("spmd/ps_svrg")
 def run_ps_svrg(sp, *, eta: float, rounds: int, epoch_mult: int = 2,
                 orders=None, seed: int = 0, group=None):
     """Parameter-server SVRG with one worker per rank: per round the
@@ -439,6 +462,7 @@ def _async_state(state):
                       x_fetch=x_fetch[None], gbar_fetch=gbar_fetch[None])
 
 
+@_spmd_span("spmd/centralvr_async")
 def run_async(sp, *, eta: float, rounds: int, orders=None, seed: int = 0,
               speeds=None, group=None, fused=False, prox=None):
     """Algorithm 3 as concurrency waves: the schedule, the draws and the
@@ -481,6 +505,7 @@ def run_async(sp, *, eta: float, rounds: int, orders=None, seed: int = 0,
     return _async_state(state), rels
 
 
+@_spmd_span("spmd/dsaga")
 def run_dsaga(sp, *, eta: float, rounds: int, tau: int = 100,
               literal_scaling: bool = False, speeds=None, orders=None,
               seed: int = 0, group=None, fused=False, prox=None):

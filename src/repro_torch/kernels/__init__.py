@@ -20,12 +20,22 @@ reference, ``ssd_scan`` (the model-layout entry) is exported here lazily.
 ``resolve_fused()`` is the one place that turns a ``fused=`` flag into a
 decision, so every caller agrees on the dispatch, and
 ``resolve_device()`` the one place that picks an entry point's device.
+Each wrapper module counts its kernel's launches (``launches``);
+``launch_counts()`` reads all six.
 """
 from __future__ import annotations
 
 import torch
 
 _LAZY = {"ssd_scan": ("repro_torch.kernels.ssd_scan.kernel", "ssd_scan")}
+
+# the wrapper module of each hand-written kernel, which counts its launches
+COUNTERS = {"vr_update": "repro_torch.kernels.vr_update.kernel",
+            "vr_epoch": "repro_torch.kernels.vr_update.epoch",
+            "lazy_epoch": "repro_torch.kernels.lazy_epoch.kernel",
+            "rmsnorm": "repro_torch.kernels.rmsnorm.kernel",
+            "flash_attention": "repro_torch.kernels.flash_attention.kernel",
+            "ssd_scan": "repro_torch.kernels.ssd_scan.kernel"}
 
 
 def __getattr__(name):
@@ -35,6 +45,14 @@ def __getattr__(name):
         raise AttributeError(name) from None
     import importlib
     return getattr(importlib.import_module(mod_name), attr)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count so far, by name (a host read of Python
+    counters: no sync)."""
+    import importlib
+    return {name: importlib.import_module(mod).launches
+            for name, mod in COUNTERS.items()}
 
 
 def has_kernel_support(device) -> bool:

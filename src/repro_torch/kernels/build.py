@@ -10,6 +10,13 @@ It holds an exclusive ``fcntl.flock`` on the build directory's lock file
 meanwhile, so processes that start together (the ranks of the spmd
 backend) compile each source once: one builds, the others wait for the
 lock, find the libraries and only load them.
+
+``BUILD_DIR`` is the build directory; ``launch/compile_cache.py`` points
+it elsewhere (``--compile-cache DIR``) before the first build, so that a
+second process on the same directory compiles nothing. With a recorder
+active (``repro_torch.obs``) each :func:`build` writes a
+``kernels/build`` span: ``built``, the sources it compiled, and
+``cached``, how many it found built.
 """
 from __future__ import annotations
 
@@ -45,17 +52,32 @@ def build(*sources: Path) -> list:
     """Compile every source whose library is missing, one ``nvcc`` each,
     all started together; returns the libraries' paths in order. Raises
     with nvcc's output if any build fails."""
+    from repro_torch.obs import recorder
+
+    rec = recorder.active()
+    t0 = rec.clock() if rec is not None else None
     libs = [library_path(s) for s in sources]
-    if all(lib.exists() for lib in libs):
-        return libs
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)      # released when it is closed
-        _build_missing(sources, libs)
+    built = []
+    try:
+        if not all(lib.exists() for lib in libs):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "build.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # released when closed
+                built = _build_missing(sources, libs)
+    except BaseException:
+        if rec is not None:
+            rec.end_span("kernels/build", t0, failed=True, built=built,
+                         cached=0)
+        raise
+    if rec is not None:
+        rec.end_span("kernels/build", t0, built=built,
+                     cached=len(sources) - len(built))
     return libs
 
 
-def _build_missing(sources, libs) -> None:
+def _build_missing(sources, libs) -> list:
+    """Compile the sources whose library is (still) missing; returns
+    their file names."""
     jobs = []
     for src, lib in zip(sources, libs):
         if lib.exists():
@@ -76,3 +98,4 @@ def _build_missing(sources, libs) -> None:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return [src.name for src, *_ in jobs]

@@ -14,7 +14,10 @@ started:
         --arch mamba2-130m --reduced --num-workers 2 --backend spmd
 
 ``--device`` defaults to each rank's CUDA device and fails without one.
-The reference's per-step host runtime and its production meshes are not
+``--obs PATH`` records the run's telemetry (``repro_torch.obs``; rank 0
+under spmd), ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
+per process, and ``--compile-cache DIR`` builds the kernels in DIR. The
+reference's per-step host runtime and its production meshes are not
 ported yet and raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -50,6 +53,14 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", default="test", choices=["test", "production",
                                                        "production-multipod"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--obs", default="", metavar="PATH",
+                    help="record structured run telemetry (epoch spans + "
+                         "structured epoch rows) to this JSONL file")
+    ap.add_argument("--profile", default="", metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "per process into this directory")
+    from repro_torch.launch.compile_cache import add_compile_cache_arg
+    add_compile_cache_arg(ap)
     ap.add_argument("--device", default=None,
                     help="torch device; default the current CUDA device")
     return ap.parse_args(argv)
@@ -58,8 +69,14 @@ def parse_args(argv=None):
 def _train(group, args):
     """One run of the epoch loop (in a rank of ``group`` under spmd);
     returns what ``main`` prints."""
+    from repro_torch import obs
     from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.kernels import resolve_device
+    from repro_torch.launch.compile_cache import enable_compile_cache
+    from repro_torch.launch.solve import profiling
     from repro_torch.train import loop
+
+    enable_compile_cache(args.compile_cache)
 
     cfg = get_arch(args.arch)
     if args.reduced:
@@ -71,12 +88,23 @@ def _train(group, args):
         vr_table_size=args.vr_table_size, local_epoch=args.local_epoch,
         seed=args.seed)
     lead = group is None or group.rank == 0
-    res = loop.run_training(
-        cfg, tcfg, epochs=args.epochs or None,
-        steps=None if args.epochs else args.steps,
-        workers=args.num_workers, backend=args.backend,
-        device=None if group is not None else args.device, group=group,
-        log_fn=print if lead else (lambda _: None))
+    device = (group.device if group is not None
+              else resolve_device(args.device, "repro_torch.launch.train"))
+    if args.obs and lead:
+        obs.enable(args.obs)
+    try:
+        with profiling(args.profile, device,
+                       0 if group is None else group.rank):
+            res = loop.run_training(
+                cfg, tcfg, epochs=args.epochs or None,
+                steps=None if args.epochs else args.steps,
+                workers=args.num_workers, backend=args.backend,
+                device=None if group is not None else device, group=group,
+                log_fn=print if lead else (lambda _: None))
+    finally:
+        if args.obs and lead:
+            obs.disable()
+            print(f"wrote telemetry to {args.obs}")
     return dict(steps=res.steps, wall_time=res.wall_time,
                 loss=res.losses[-1], eval_loss=res.final_eval_loss)
 

@@ -4,9 +4,17 @@ Drives whole communication epochs (M*K steps each) through
 ``step.make_epoch_runner`` (unfused, as the reference's loop does), then
 evaluates the held-out loss on the worker-averaged params. Checkpoints
 and resume are not ported yet (ROADMAP.md queue 1, item 11).
+
+With a recorder active (``repro_torch.obs``) the loop records, as the
+reference's does: the first epoch through ``obs.staged_call``
+(``train/epoch/execute``, with its device time and kernel launches),
+every later epoch as a ``train/epoch`` span up to a sync, a
+``train_epoch`` event per logged epoch, the ``train/eval`` span and a
+``train_done`` event. Under the spmd backend only rank 0 records.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional
@@ -17,6 +25,8 @@ import torch
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.data import synthetic
 from repro_torch.models import model as modellib
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import stage as obs_stage
 from repro_torch.train import step as tstep
 
 
@@ -72,15 +82,33 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     if backend == "spmd" and W > 1:
         state = tstep.place_train_state(state, meta["group"])
 
+    lead = backend != "spmd" or meta["group"].rank == 0
+    rec = obs_recorder.active() if lead else None
+    device = meta["device"]
     result = LoopResult()
     t0 = time.time()
     epoch_losses = []
     for e in range(epochs):
-        state, losses = run_epoch(state)
+        if rec is None:
+            state, losses = run_epoch(state)
+        elif e == 0:
+            state, losses = obs_stage.staged_call(
+                run_epoch, state, _label="train/epoch", _device=device,
+                _group=meta.get("group"))
+        else:
+            # synced inside the span, so its duration is the epoch's work
+            with rec.span("train/epoch", epoch=e):
+                state, losses = run_epoch(state)
+                if torch.device(device).type == "cuda":
+                    torch.cuda.synchronize(device)
         epoch_losses.append(losses)
         if log_every and (e % log_every == 0 or e == epochs - 1):
+            loss = float(losses[-1])
+            if rec is not None:
+                rec.event("train_epoch", epoch=e, step=(e + 1) * E,
+                          loss=loss, workers=W)
             log_fn(f"epoch {e:4d}  step {(e + 1) * E:6d}  "
-                   f"loss {float(losses[-1]):.4f}")
+                   f"loss {loss:.4f}")
     result.losses = [float(l) for l in torch.cat(epoch_losses).cpu()]
     result.steps = epochs * E
     result.epochs = epochs
@@ -96,8 +124,15 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig, *,
     if not isinstance(eval_tokens, torch.Tensor):
         eval_tokens = torch.from_numpy(np.asarray(eval_tokens))
     ev = eval_tokens.to(state.params.device, torch.int64)
-    flat = tstep.eval_params(state.params, state.params.shape[0])
-    with torch.no_grad():
-        result.final_eval_loss = float(modellib.loss_fn(
-            state.layout.views(flat), cfg, {"tokens": ev}, remat="none"))
+    with (rec.span("train/eval") if rec is not None
+          else contextlib.nullcontext()):
+        flat = tstep.eval_params(state.params, state.params.shape[0])
+        with torch.no_grad():
+            result.final_eval_loss = float(modellib.loss_fn(
+                state.layout.views(flat), cfg, {"tokens": ev},
+                remat="none"))
+    if rec is not None:
+        rec.event("train_done", epochs=epochs, steps=epochs * E,
+                  eval_loss=result.final_eval_loss,
+                  wall_s=result.wall_time)
     return result
