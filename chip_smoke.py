@@ -176,6 +176,34 @@ Phases, each of which raises on failure:
      the sweep and the launcher run as three processes at once, after
      the timed runs. ``--obs`` runs only the device phase, the build and
      this phase;
+ 6c. the process fleet, elasticity and checkpoints on
+     ``dist-toy-logistic`` (p 8, n 5000 a worker, d 1000, float64):
+     ``python -m repro_torch.launch.distributed --nprocs 2 --workers 8
+     --x64 --verify`` (two processes of four workers on the card, their
+     data plane a TCPStore served by process 0) in five lanes started
+     together: Algorithm 3 round-robin and with speeds 1..8 (2 rounds),
+     Algorithm 2 (3 rounds), an exit fault of process 1 at round 2 (3
+     rounds; the run goes on at p 4) and a stall of process 1 at round 1
+     that rejoins at round 2 (3 rounds). Each lane exits 0 only if its
+     trajectory equals the event-serial replay in its launcher bit for
+     bit (Algorithm 2 within 1e-12); the transitions process 0 observed,
+     ``detect_s`` at least the heartbeat timeout and valid records are
+     checked here. Meanwhile, in this process: the local elastic run
+     through ``solve`` (3 rounds, workers 0..3 at round 1, all 8 back at
+     round 2) fused and unfused on the same draws, within 1e-9 relative,
+     the fused run exactly one vr_epoch launch per event and per init
+     epoch (21) and nothing else; an elastic checkpoint at round 2
+     restored at p 4, continuing bit for bit as the run that drops there,
+     and a SyncState round-trip; and Mamba2-130M at full width and depth
+     (W 2, seq 2048, fused) through ``train.loop.run_training``: two
+     epochs saving every epoch, then one epoch saved and resumed for
+     epoch 2, whose losses and eval loss must equal the uninterrupted
+     run's bit for bit (or, if two uninterrupted runs differ, lie within
+     their spread), each run's launches a fused step's; save and restore
+     seconds from the ``train/checkpoint`` and ``train/restore`` spans,
+     the bytes a save writes. Files under ``build/fleet_smoke/``, the
+     checkpoints deleted afterwards. ``--fleet`` runs only the device
+     phase, the build and this phase;
   7. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape; CUDA events for K1 at
@@ -213,7 +241,8 @@ untraced, the kernels that take the device time, and the LM backward's
 device time by autograd node.
 
 ``--sparse`` runs only the device phase, the build and phase 5b;
-``--spmd`` only the device phase, the build and phase 4c.
+``--spmd`` only the device phase, the build and phase 4c; ``--fleet``
+only the device phase, the build and phase 6c.
 
 ``--rates`` runs only the device phase, vr_epoch's device time at each
 convex path's shape, lazy_epoch's per epoch through its public wrapper
@@ -2064,21 +2093,22 @@ def _env():
     return env
 
 
-def obs_start(label, argv):
+def obs_start(label, argv, out_dir=OBS_OUT):
     """Start ``python argv...`` from the checkout's root, its output into
-    ``OBS_OUT/<label>.out``; returns (label, process, start time)."""
-    out = open(OBS_OUT / f"{label}.out", "w")
-    proc = subprocess.Popen([sys.executable, *argv], stdout=out,
-                            stderr=subprocess.STDOUT, text=True,
-                            env=_env(), cwd=str(ROOT))
-    out.close()
-    return label, proc, time.perf_counter()
+    ``out_dir/<label>.out``; returns (label, process, start time, output
+    path)."""
+    path = out_dir / f"{label}.out"
+    with open(path, "w") as out:
+        proc = subprocess.Popen([sys.executable, *argv], stdout=out,
+                                stderr=subprocess.STDOUT, text=True,
+                                env=_env(), cwd=str(ROOT))
+    return label, proc, time.perf_counter(), path
 
 
-def obs_wait(job, timeout=600):
+def obs_wait(job, timeout=600, tag="obs"):
     """Wait for a process of :func:`obs_start`; raises with its output's
     tail unless it exits 0. Returns its wall time."""
-    label, proc, t0 = job
+    label, proc, t0, path = job
     try:
         proc.wait(timeout=timeout)
     finally:
@@ -2086,12 +2116,11 @@ def obs_wait(job, timeout=600):
             proc.kill()
             proc.wait()
     wall = time.perf_counter() - t0
-    tail = "\n".join((OBS_OUT / f"{label}.out").read_text()
-                     .splitlines()[-14:])
+    tail = "\n".join(path.read_text().splitlines()[-14:])
     if proc.returncode != 0:
-        raise AssertionError(f"[obs] {label} exited {proc.returncode}:\n"
+        raise AssertionError(f"[{tag}] {label} exited {proc.returncode}:\n"
                              f"{tail}")
-    log(f"[obs] {label} in {wall:.1f} s:\n{tail}")
+    log(f"[{tag}] {label} in {wall:.1f} s:\n{tail}")
     return wall
 
 
@@ -2213,6 +2242,331 @@ def phase_obs(torch, kernels):
                                       warm_s=warm[0]["dur_s"]),
                 sweep=sweep, train=train,
                 launches=sum(4 * r["launches"] for r in recs))
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: the process fleet, elasticity and checkpoints
+# ---------------------------------------------------------------------------
+
+FLEET_OUT = ROOT / "build" / "fleet_smoke"  # records, logs, checkpoints
+# dist-toy-logistic (logistic, n 5000 a worker, d 1000, p 8, float64) over
+# two processes of four workers on the card, through the launcher; an
+# unfused event takes about 1 s on the card and --verify reruns every
+# event in the launcher, so the rounds are cut (FLEET_LANES)
+FLEET_HB_S = 10.0               # the heartbeat wait, the launcher's default
+FLEET_SIZE = ("--nprocs", "2", "--workers", "8", "--n", "5000", "--d",
+              "1000", "--x64", "--verify", "--timeout", "600")
+FLEET_SPEEDS = ",".join(str(s) for s in range(1, 9))
+ALL_8 = list(range(8))
+# (name, flags, transitions (round, live workers) process 0 must observe)
+FLEET_LANES = (
+    ("async-rr", ("--algo", "centralvr_async", "--rounds", "2"), []),
+    ("async-speeds", ("--algo", "centralvr_async", "--rounds", "2",
+                      "--speeds", FLEET_SPEEDS), []),
+    ("sync", ("--algo", "centralvr_sync", "--rounds", "3"), []),
+    ("exit", ("--algo", "centralvr_async", "--rounds", "3", "--elastic",
+              "--drop-process", "1", "--drop-round", "2", "--drop-mode",
+              "exit"), [(2, [0, 1, 2, 3])]),
+    ("stall", ("--algo", "centralvr_async", "--rounds", "3", "--elastic",
+               "--drop-process", "1", "--drop-round", "1", "--drop-mode",
+               "stall", "--rejoin-after", "1"),
+     [(1, [0, 1, 2, 3]), (2, ALL_8)]),
+)
+# the local elastic run: drop to workers 0..3 at round 1, all 8 back at 2
+FLEET_PLAN = {1: (0, 1, 2, 3), 2: tuple(ALL_8)}
+FLEET_PLAN_ROUNDS = 3
+ELASTIC_TOL = 1e-9              # fused against unfused, relative
+
+
+def fleet_lane(name, flags, want):
+    """Check a finished launcher lane: exit 0 (its --verify held), the
+    transitions process 0 observed, valid records; returns its record."""
+    from repro_torch.obs import schema
+
+    text = (FLEET_OUT / f"{name}.out").read_text()
+    with open(FLEET_OUT / f"{name}.json") as f:
+        res = json.load(f)
+    verify = next(line for line in text.splitlines()
+                  if line.startswith("verify: max"))
+    fleet = next(line for line in text.splitlines()
+                 if line.startswith("fleet ok"))
+    diff = float(verify.split("= ")[1].split()[0])
+    got = [(t["round"], t["live"]) for t in res["transitions"]]
+    if got != want or "-> OK" not in verify or res["dropped"]:
+        raise AssertionError(f"[fleet] {name}: transitions {got} (expected "
+                             f"{want}), {verify}")
+    rows = schema.load_rows(str(FLEET_OUT / f"{name}-p0.jsonl"))
+    schema.validate_rows(rows)
+    lost = [r for r in rows if r["name"] == "worker_lost"]
+    joined = [r for r in rows if r["name"] == "worker_joined"]
+    beats = [r["dur_s"] for r in rows if r["name"] == "elastic/heartbeat"]
+    if "--elastic" in flags:
+        if len(lost) != 4 or len(beats) != len(res["rels"]):
+            raise AssertionError(f"[fleet] {name}: {len(lost)} worker_lost "
+                                 f"rows, {len(beats)} heartbeat spans")
+        if min(r["detect_s"] for r in lost) < FLEET_HB_S:
+            raise AssertionError(f"[fleet] {name}: detect_s below the "
+                                 "heartbeat timeout")
+    if name == "exit":
+        rows1 = schema.load_rows(str(FLEET_OUT / f"{name}-p1.jsonl"))
+        if [(r["process"], r["round"]) for r in rows1
+                if r["name"] == "fault_exit"] != [(1, 2)]:
+            raise AssertionError("[fleet] exit: no fault_exit of process 1 "
+                                 "at round 2")
+    walls = fleet.split("processes' wall ")[1]
+    rec = dict(name=name, rounds=len(res["rels"]), max_diff=diff,
+               transitions=res["transitions"], device=res["device"],
+               processes_wall_s=float(walls.split(" s")[0]),
+               solve_wall_s=res["wall_s"],
+               serial_wall_s=float(verify.split("took ")[1].split(" s")[0]),
+               detect_s=[r["detect_s"] for r in lost],
+               joined=len(joined), heartbeat_s=beats,
+               final_rel=res["final_rel"])
+    log(f"[fleet] {name}: rounds {rec['rounds']} ({' '.join(flags)}), "
+        f"max|fleet - event-serial| {diff!r}, transitions {got}, "
+        f"detect_s {rec['detect_s']}, heartbeat spans {beats}; the two "
+        f"processes {rec['processes_wall_s']!r} s (process 0's solve "
+        f"{rec['solve_wall_s']!r} s), the event-serial replay "
+        f"{rec['serial_wall_s']!r} s, on {res['device']}")
+    return rec
+
+
+def fleet_elastic(torch, kernels, cfg):
+    """The local elastic run through ``solve`` under FLEET_PLAN, fused and
+    unfused on the same draws: x and rels within ELASTIC_TOL (relative),
+    the fused run one vr_epoch launch per event and per init epoch and
+    nothing else, the unfused run none."""
+    from repro_torch import RunSpec, solve
+    from repro_torch.core.elastic import PlannedMembership
+
+    plan = PlannedMembership(8, FLEET_PLAN)
+    events = sum(len(plan.live(r)) for r in range(FLEET_PLAN_ROUNDS))
+    runs = {}
+    for fused in (True, False):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = solve(RunSpec(algo="centralvr_async", p=8,
+                            rounds=FLEET_PLAN_ROUNDS, elastic=True,
+                            fused=fused), cfg, membership=plan)
+        torch.cuda.synchronize()
+        runs[fused] = (res, read_counts(kernels),
+                       time.perf_counter() - t0)
+    (fres, fcounts, fwall), (ures, ucounts, uwall) = runs[True], runs[False]
+    want = dict.fromkeys(kernels, 0)
+    want["vr_epoch"] = 1 + events
+    if fcounts != want or any(ucounts.values()):
+        raise AssertionError(f"[fleet] elastic: fused launched {fcounts} "
+                             f"(expected {want}), unfused {ucounts}")
+    import numpy as np
+    dx = float(np.abs(fres.x - ures.x).max() / np.abs(ures.x).max())
+    drel = float(np.abs(fres.rels - ures.rels).max()
+                 / np.abs(ures.rels).max())
+    got = [(t["round"], t["live"]) for t in fres.transitions]
+    if (dx > ELASTIC_TOL or drel > ELASTIC_TOL or got != [
+            (1, [0, 1, 2, 3]), (2, ALL_8)]
+            or fres.transitions != ures.transitions
+            or not np.isfinite(fres.rels).all()):
+        raise AssertionError(f"[fleet] elastic: |x| {dx}, |rels| {drel}, "
+                             f"transitions {got}")
+    log(f"[fleet] elastic (local, plan {FLEET_PLAN}, {FLEET_PLAN_ROUNDS} "
+        f"rounds, {events} events): fused wall {fwall!r} s, unfused "
+        f"{uwall!r} s, vr_epoch launches {fcounts['vr_epoch']} (1 + "
+        f"{events} events), max |fused - unfused| x {dx!r}, rels {drel!r} "
+        f"(relative); rels {fres.rels.tolist()}")
+    return dict(events=events, launches=fcounts, wall_s=fwall,
+                unfused_wall_s=uwall, max_dx=dx, max_drel=drel,
+                rels=fres.rels.tolist())
+
+
+def fleet_checkpoints(torch, cfg):
+    """An elastic checkpoint at round 2 (p 8) restored at p 4 continues
+    bit for bit as the run that drops to workers 0..3 there (fused); a
+    fused Algorithm 2 run's SyncState round-trips bit for bit."""
+    import os
+
+    from repro_torch import RunSpec, solve
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.checkpoint import elastic as eckpt
+    from repro_torch.core import convex, distributed, elastic
+
+    sp = distributed.make_distributed(
+        torch.Generator(device="cuda").manual_seed(cfg.seed), cfg)
+    eta = convex.auto_eta(sp.merged())
+    g0 = convex.grad_norm0(sp.merged())
+    ckdir = FLEET_OUT / "elastic_ckpt"
+    full = elastic.run_async_elastic(sp, eta=eta, rounds=4, fused=True,
+                                     checkpoint_dir=str(ckdir),
+                                     checkpoint_every=2)
+    path = str(ckdir / "elastic_00002")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, man = eckpt.restore_elastic(path, 4)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _, cont = elastic.continue_async(elastic.reshard_problem(sp, 4), st,
+                                     eta=eta, g0=g0, start_round=2, rounds=4,
+                                     fused=True)
+    drop = elastic.run_async_elastic(
+        sp, eta=eta, rounds=4, fused=True,
+        membership=elastic.PlannedMembership(8, {2: (0, 1, 2, 3)}))
+    if not (man["round"] == 2 and man["p"] == 8
+            and torch.equal(cont, drop.rels[2:])
+            and torch.equal(full.rels[:2], drop.rels[:2])):
+        raise AssertionError(f"[fleet] elastic checkpoint: continued "
+                             f"{cont.tolist()}, the dropping run "
+                             f"{drop.rels.tolist()}")
+    ck_bytes = os.path.getsize(path + ".npz")
+
+    res = solve(RunSpec(algo="centralvr_sync", p=8, rounds=2, fused=True),
+                cfg)
+    spath = str(FLEET_OUT / "sync_state.npz")
+    t0 = time.perf_counter()
+    s_bytes = checkpoint.save(spath, res.state, step=2)
+    save_s = time.perf_counter() - t0
+    back = checkpoint.restore(spath, res.state)
+    if not (type(back) is type(res.state)
+            and all(torch.equal(a, b) for a, b in zip(back, res.state))):
+        raise AssertionError("[fleet] SyncState did not round-trip")
+    log(f"[fleet] elastic checkpoint at round 2 (p 8, {ck_bytes} bytes) "
+        f"restored at p 4 in {restore_s!r} s: the continuation equals the "
+        f"run dropping to (0, 1, 2, 3) at round 2, bit for bit (rels "
+        f"{cont.tolist()}); SyncState of Algorithm 2 (p 8, d 1000): "
+        f"{s_bytes} bytes in {save_s!r} s, round-trips bit for bit")
+    return dict(elastic_bytes=ck_bytes, elastic_restore_s=restore_s,
+                sync_bytes=s_bytes, sync_save_s=save_s,
+                rels=cont.tolist())
+
+
+def fleet_lm(torch, kernels):
+    """Mamba2-130M at full width and depth (W 2, seq 2048, fused) through
+    ``train.loop.run_training``: two epochs saving every epoch (U); one
+    epoch saving (B), then resumed from B's epoch-1 save for epoch 2
+    (R). U's first epoch must equal B's, and R's losses and eval loss U's
+    second epoch's and eval loss, bit for bit; if they do not, a second
+    uninterrupted run (V) measures the run-to-run spread, which must be
+    nonzero and bound R's difference. Each run's launches are gated to a
+    fused step's. Save and restore seconds come from the
+    ``train/checkpoint`` and ``train/restore`` spans."""
+    import gc
+    import os
+
+    from repro_torch import obs
+    from repro_torch.obs import schema
+    from repro_torch.train import loop
+
+    (cfg, tcfg), _ = mamba_configs()
+    W, E = 2, tcfg.vr_table_size * tcfg.local_epoch
+    per_step = expected_launches(cfg, 2, W)
+    a, b = str(FLEET_OUT / "lm_a.npz"), str(FLEET_OUT / "lm_b.npz")
+    record = str(FLEET_OUT / "lm.jsonl")
+
+    def run(epochs, steps, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = loop.run_training(cfg, tcfg, epochs=epochs, workers=W,
+                                fused=True, log_every=0, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        want = {k: v * steps for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"[fleet] LM launched {counts}, expected "
+                                 f"{want}")
+        out = dict(losses=res.losses, eval=res.final_eval_loss, wall_s=wall,
+                   counts=counts)
+        del res
+        return out
+
+    with obs.recording(record):
+        u = run(2, 2 * E, checkpoint_path=a, checkpoint_every=1)
+        a_bytes = os.path.getsize(a) + os.path.getsize(a + ".json")
+        os.remove(a)
+        bb = run(1, E, checkpoint_path=b, checkpoint_every=1)
+        r = run(2, E, checkpoint_path=b, resume=True)
+    os.remove(b)
+    rows = schema.load_rows(record)
+    saves = [x["dur_s"] for x in rows if x["name"] == "train/checkpoint"]
+    restores = [x["dur_s"] for x in rows if x["name"] == "train/restore"]
+    if len(saves) != 4 or len(restores) != 1:
+        raise AssertionError(f"[fleet] LM: {len(saves)} save spans, "
+                             f"{len(restores)} restore spans")
+    first_same = bb["losses"] == u["losses"][:E]
+    resumed_same = (r["losses"] == u["losses"][E:]
+                    and r["eval"] == u["eval"])
+    spread = None
+    if not (first_same and resumed_same):
+        v = run(2, 2 * E)
+        spread = max(abs(x - y) for x, y in zip(
+            v["losses"] + [v["eval"]], u["losses"] + [u["eval"]]))
+        diff = max(abs(x - y) for x, y in zip(
+            r["losses"] + [r["eval"]], u["losses"][E:] + [u["eval"]]))
+        if not 0.0 < diff <= spread:
+            raise AssertionError(
+                f"[fleet] LM resume: |R - U| {diff!r} against the spread "
+                f"{spread!r} of two uninterrupted runs")
+    steps_launched = {k: u["counts"][k] + bb["counts"][k] + r["counts"][k]
+                      for k in u["counts"]}
+    log(f"[fleet] LM mamba2-130m L=24 W=2 S=2048 fused: resumed epoch 2 "
+        f"{'bit-identical to' if spread is None else 'within the spread of'}"
+        f" the uninterrupted run (losses {r['losses']}, eval "
+        f"{r['eval']!r}; uninterrupted {u['losses']}, eval {u['eval']!r}"
+        f"{'' if spread is None else f'; spread {spread!r}'}); a save "
+        f"{a_bytes} bytes, saves {saves} s, restore {restores} s; walls "
+        f"U {u['wall_s']!r} s (2 epochs, 2 saves), B {bb['wall_s']!r} s, "
+        f"R {r['wall_s']!r} s; launches {steps_launched}")
+    return dict(bit_identical=spread is None, spread=spread,
+                save_bytes=a_bytes, save_s=saves, restore_s=restores,
+                losses=u["losses"], resumed_losses=r["losses"],
+                eval_loss=u["eval"], resumed_eval_loss=r["eval"],
+                walls_s=[u["wall_s"], bb["wall_s"], r["wall_s"]],
+                launches=steps_launched)
+
+
+def phase_fleet(torch, kernels):
+    """Phase 6c: the launcher's five lanes at dist-toy-logistic's width
+    (two processes of four workers each on the card, --verify), started
+    together as processes; meanwhile, here, the local elastic run fused
+    and unfused, the elastic and SyncState checkpoints and the Mamba2-130M
+    checkpoint and resume. Returns the phase's record, its kernel
+    launches by name under ``launches``."""
+    import shutil
+
+    from repro_torch.configs.paper_convex import PRESETS
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FLEET_OUT, ignore_errors=True)
+    FLEET_OUT.mkdir(parents=True)
+    log("[fleet] cuts: the lanes run rounds 2 (async round-robin, async "
+        "speeds 1..8), 3 (sync; exit fault at round 2; stall at round 1, "
+        "back at round 2) of the 10 the convex path runs; the local "
+        "elastic run 3 rounds; the elastic checkpoint run 4; the LM 2 "
+        "epochs of 2 steps")
+    jobs = [obs_start(name, [
+        "-m", "repro_torch.launch.distributed", *FLEET_SIZE,
+        "--hb-timeout", str(FLEET_HB_S), *flags,
+        "--run-prefix", name, "--json", str(FLEET_OUT / f"{name}.json"),
+        "--obs", str(FLEET_OUT / name), "--logdir",
+        str(FLEET_OUT / f"{name}-logs")], FLEET_OUT)
+        for name, flags, _ in FLEET_LANES]
+    cfg = PRESETS["dist-toy-logistic"]
+    elastic_rec = fleet_elastic(torch, kernels, cfg)
+    ckpt_rec = fleet_checkpoints(torch, cfg)
+    lm_rec = fleet_lm(torch, kernels)
+    walls = [obs_wait(job, tag="fleet") for job in jobs]
+    lanes = [dict(fleet_lane(name, flags, want), wall_s=wall)
+             for (name, flags, want), wall in zip(FLEET_LANES, walls)]
+    for name in ("lm_a.npz", "lm_b.npz", "sync_state.npz"):
+        (FLEET_OUT / name).unlink(missing_ok=True)
+    shutil.rmtree(FLEET_OUT / "elastic_ckpt", ignore_errors=True)
+    launches = dict(lm_rec["launches"])
+    launches["vr_epoch"] += elastic_rec["launches"]["vr_epoch"]
+    log(f"[path] phase 6c (fleet) in {time.perf_counter() - t0:.1f} s")
+    return dict(lanes=lanes, elastic=elastic_rec, checkpoints=ckpt_rec,
+                lm=lm_rec, launches=launches)
 
 
 def graph_ms(torch, fn, calls=200, replays=20):
@@ -2770,6 +3124,15 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--fleet" in sys.argv[1:]:
+        fleet = phase_fleet(torch, kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"fleet": fleet}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--obs" in sys.argv[1:]:
         telemetry = phase_obs(torch, kernels)
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -2809,6 +3172,7 @@ def main():
     spmd = phase_spmd(torch, kernels)
     lm = phase_lm(torch, kernels)
     telemetry = phase_obs(torch, kernels)
+    fleet = phase_fleet(torch, kernels)
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                (2, model.ParamLayout(mamba_full).n),
@@ -2838,6 +3202,8 @@ def main():
             total[name] += n
     for name, n in spmd["launches"].items():
         total[name] += n
+    for name, n in fleet["launches"].items():
+        total[name] += n
     mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
     lm_paths = [{k: r[k] for k in ("label", "counts", "per_step", "steps",
                                    "steps_s", "unfused_steps_s",
@@ -2858,7 +3224,9 @@ def main():
         "library_ms": None,
         "convex_shapes_max_abs_err": worst["float64"],
         "other_shapes": [lm_red_shape, mamba_shape],
-        "bf16_lane_max_abs_err": vr_bf16_err, "paths": lm_paths}, {
+        "bf16_lane_max_abs_err": vr_bf16_err, "paths": lm_paths,
+        "fleet_lm": {k: v for k, v in fleet["lm"].items()
+                     if k not in ("losses", "resumed_losses")}}, {
         "name": "vr_epoch", "route": "cuda",
         "source": "src/repro_torch/kernels/vr_update/csrc/vr_epoch.cu",
         "replaces": "src/repro/kernels/vr_update/kernel.py:64",
@@ -2876,7 +3244,9 @@ def main():
                                      "unfused_wall_s", "peak_bytes",
                                      "max_diff")}
                   for p in paths],
-        "spmd_paths": spmd["runs"], "telemetry": telemetry}, {
+        "spmd_paths": spmd["runs"], "telemetry": telemetry,
+        "fleet": {k: fleet[k] for k in ("lanes", "elastic",
+                                         "checkpoints")}}, {
         "name": "lazy_epoch", "route": "cuda",
         "source": "src/repro_torch/kernels/lazy_epoch/csrc/lazy_epoch.cu",
         "replaces": "src/repro/prox/lazy.py:215 (the jitted scan "

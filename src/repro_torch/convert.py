@@ -141,6 +141,37 @@ def async_orders(random, key, p: int, ns: int, rounds: int):
                                                  ns)
 
 
+def elastic_orders(random, key, p: int, ns: int, rounds: int,
+                   membership=None):
+    """The draws of ``repro.core.elastic.run_async_elastic(..., key=key,
+    membership=membership)``, in the ``orders`` layout of the port's
+    ``run_async_elastic``: (init permutations (p, ns), ``{start round:
+    per-event permutations ((rounds - start) * p_seg, n // p_seg)}``), one
+    entry per shape segment. ``membership`` is either package's
+    ``PlannedMembership`` or a ``{round: live ids}`` plan (None: the full
+    fleet throughout). Segment 0 draws from ``split(key)[1]`` itself, the
+    segment that begins at round r at width p from
+    ``fold_in(fold_in(k_run, r), p)`` (the reference's ``segment_plan``),
+    one permutation per key of its split, as ``_perm_rows`` draws them."""
+    from repro_torch.core.elastic import PlannedMembership
+    if membership is None or isinstance(membership, dict):
+        membership = PlannedMembership(p, membership)
+    k_init, k_run = random.split(key)
+    n, live = p * ns, membership.live(0)
+    starts = {0: len(live)}
+    for r in membership.change_rounds():
+        if 0 < r < rounds and membership.live(r) != live:
+            live = membership.live(r)
+            starts[r] = len(live)
+    segments = {}
+    for start, p_seg in starts.items():
+        k_seg = (k_run if start == 0 else
+                 random.fold_in(random.fold_in(k_run, start), p_seg))
+        segments[start] = _perms(random, k_seg, (rounds - start) * p_seg,
+                                 n // p_seg)
+    return _perms(random, k_init, p, ns), segments
+
+
 def dsvrg_orders(random, key, p: int, ns: int, rounds: int, tau: int = 0,
                  snapshot: str = "last"):
     """The draws of ``repro.core.distributed.run_dsvrg(..., key=key)``:

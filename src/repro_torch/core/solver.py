@@ -3,10 +3,7 @@ of ``repro/core/solver.py``.
 
   * :class:`RunSpec` — a frozen description of one run with ALL of the
     reference's cross-field validation, so an invalid combination fails
-    before any torch work with the reference's error text. A valid spec
-    for a part that is not ported yet (process fleets and elasticity)
-    raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-    it.
+    before any torch work with the reference's error text.
   * ``FAMILY`` — the capability record of every algorithm of the
     reference's registry (what RunSpec validates against); ``REGISTRY``
     — the same eleven algorithms with their drivers.
@@ -14,7 +11,10 @@ of ``repro/core/solver.py``.
     and the kernel launches it made.
   * :func:`solve` — runs a spec on the CUDA device, or on the CPU when the
     caller asks for it; ``backend="spmd"`` on this rank's device of a
-    worker group (``core/spmd.py``, ``launch/mesh.py``).
+    worker group (``core/spmd.py``, ``launch/mesh.py``);
+    ``topology="process"`` on this process's share of a process fleet
+    (``core/procmesh.py``, ``launch/distributed.py``); ``elastic=True``
+    under a membership plan (``core/elastic.py``).
 """
 from __future__ import annotations
 
@@ -136,8 +136,12 @@ class RunSpec:
       fused         the vr_epoch kernel path: False (unfused body), True
                     (the kernel on a CUDA device, its plain version on the
                     CPU), or "auto" (the kernel on a Hopper card only)
-      topology, elastic
-                    "local" / False; process fleets are not ported yet
+      topology      "local", or "process": this process's share of a
+                    process fleet (``core/procmesh.py``; centralvr_sync
+                    and centralvr_async, unfused)
+      elastic       centralvr_async under a membership plan
+                    (``core/elastic.py``; with topology="process" the
+                    membership comes from heartbeats)
     """
 
     algo: str
@@ -382,12 +386,6 @@ class RunSpec:
                 "the smooth objective only; prox= is not supported with "
                 "elastic=True")
 
-        # validated like the reference; now refuse what is not ported yet
-        if self.topology == "process" or self.elastic:
-            raise NotImplementedError(
-                "RunSpec.topology: process fleets and elasticity are not "
-                "ported to repro_torch yet (ROADMAP.md queue 1, item 11)")
-
 
 # ---------------------------------------------------------------------------
 # RunResult — the uniform return
@@ -412,7 +410,9 @@ class RunResult:
     wave-utilization record of the asynchronous algorithms' event schedule
     (``obs/staleness.py``; None for the bulk-synchronous ones). Under
     ``backend="spmd"`` ``x`` and ``rels`` are replicated and ``state``
-    holds this rank's shard of the tables.
+    holds this rank's shard of the tables. ``transitions`` are the
+    membership changes of an elastic run that took effect (None for a
+    run that is not elastic).
     """
 
     spec: RunSpec
@@ -425,6 +425,7 @@ class RunResult:
     grad_evals: Optional[np.ndarray] = None
     comms: Optional[dict] = None
     staleness: Optional[dict] = None
+    transitions: Optional[list] = None   # elastic membership changes
 
     @property
     def final_rel(self) -> float:
@@ -502,7 +503,7 @@ def _coerce_problem(spec: RunSpec, problem, device: torch.device,
 
 
 def solve(spec: RunSpec, problem, *, device=None, orders=None,
-          group=None) -> RunResult:
+          group=None, membership=None) -> RunResult:
     """Run ``spec`` against ``problem`` (a ``ConvexConfig``, ``Problem``, or
     ``ShardedProblem``) and return the uniform :class:`RunResult`.
 
@@ -546,6 +547,15 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
                        default 16
       ps_svrg          indices (R, 2*ns, p): one per worker per server
                        step
+
+    ``elastic=True`` (centralvr_async) under ``topology="local"`` runs
+    the event-serial elastic engine (``core/elastic.py``) under the
+    ``membership=`` plan (a ``core.elastic.PlannedMembership``; None keeps
+    the full fleet); its orders are ``(init (p, ns), {start round:
+    per-event permutations})``, one entry per shape segment.
+    ``topology="process"`` runs this process's share of the fleet
+    installed by ``launch.distributed`` (``core/procmesh.py``; its
+    launcher passes each process ``launch.mesh.rank_device``).
     """
     from repro_torch.core import convex, distributed, runtime
     from repro_torch.kernels import launch_counts, resolve_device
@@ -554,6 +564,13 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
     from repro_torch.obs import staleness as obs_staleness
 
     entry = REGISTRY[spec.algo]
+    if membership is not None and not (spec.elastic
+                                       and spec.topology == "local"):
+        raise ValueError(
+            "solve(membership=...) is the deterministic dropout plan of a "
+            "LOCAL elastic run; it needs spec.elastic=True and "
+            "spec.topology='local' (process topology discovers membership "
+            "through heartbeats)")
     spmd_run = spec.backend == "spmd"
     if spmd_run:
         from repro_torch.core import spmd
@@ -581,8 +598,23 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
     launches0 = launch_counts()
     carried0 = (group.carried_bytes, group.collectives) if spmd_run else None
     t0 = time.perf_counter()
-    state, x, rels, grad_evals = entry.call(spec, problem, eta, orders,
-                                            group)
+    transitions = None
+    if spec.topology == "process":
+        from repro_torch.core import procmesh
+        state, x, rels, transitions = procmesh.solve_process(
+            spec, problem, eta, orders)
+        grad_evals = None
+    elif spec.elastic:
+        from repro_torch.core import elastic
+        eres = elastic.run_async_elastic(
+            problem, eta=eta, rounds=spec.rounds, seed=spec.seed,
+            orders=orders, membership=membership, speeds=spec.speeds,
+            fused=spec.fused)
+        state, x, rels = eres.state, eres.state.x_c, eres.rels
+        transitions, grad_evals = eres.transitions, None
+    else:
+        state, x, rels, grad_evals = entry.call(spec, problem, eta, orders,
+                                                group)
     rels = rels.cpu().numpy()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -611,7 +643,7 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
     res = RunResult(spec=resolved, rels=rels, x=x.cpu().numpy(),
                     state=state, wall_s=wall, launches=launches,
                     device=name, grad_evals=grad_evals, comms=comms,
-                    staleness=staleness)
+                    staleness=staleness, transitions=transitions)
     rec = obs_recorder.active()
     if rec is not None:
         rec.event("launches", **launches)

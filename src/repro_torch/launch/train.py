@@ -14,6 +14,9 @@ started:
         --arch mamba2-130m --reduced --num-workers 2 --backend spmd
 
 ``--device`` defaults to each rank's CUDA device and fails without one.
+``--checkpoint PATH`` saves the state at the end (and every
+``--checkpoint-every`` epochs); ``--resume`` continues from its latest
+save (``train/loop.py``).
 ``--obs PATH`` records the run's telemetry (``repro_torch.obs``; rank 0
 under spmd), ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
 per process, and ``--compile-cache DIR`` builds the kernels in DIR. The
@@ -52,6 +55,11 @@ def parse_args(argv=None):
     ap.add_argument("--local-epoch", type=int, default=1)
     ap.add_argument("--mesh", default="test", choices=["test", "production",
                                                        "production-multipod"])
+    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="epochs between saves to --checkpoint")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from --checkpoint's latest save")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--obs", default="", metavar="PATH",
                     help="record structured run telemetry (epoch spans + "
@@ -100,6 +108,8 @@ def _train(group, args):
                 steps=None if args.epochs else args.steps,
                 workers=args.num_workers, backend=args.backend,
                 device=None if group is not None else device, group=group,
+                checkpoint_path=args.checkpoint or None,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
                 log_fn=print if lead else (lambda _: None))
     finally:
         if args.obs and lead:

@@ -489,9 +489,9 @@ def test_run_training_on_its_own_data_learns():
     assert np.isfinite(res.final_eval_loss)
     with pytest.raises(ValueError, match="multiple of the communication"):
         loop.run_training(cfg, tcfg, steps=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        loop.run_training(cfg, tcfg, steps=2, device="cpu",
-                          checkpoint_path="ckpt")
+    with pytest.raises(ValueError, match="spmd backend holds one worker"):
+        loop.run_training(cfg, tcfg, steps=2, device="cpu", workers=2,
+                          backend="spmd", checkpoint_path="ckpt")
 
 
 # ---------------------------------------------------------------------------

@@ -173,9 +173,14 @@ def test_runspec_refuses_like_the_reference(kw):
     (dict(algo="centralvr_sync", p=2, topology="process"), "item 11"),
 ])
 def test_unported_parts_raise_naming_the_roadmap_item(kw, item):
-    repro.RunSpec(**kw)            # valid in the reference
-    with pytest.raises(NotImplementedError, match=item):
-        repro_torch.RunSpec(**kw)
+    """The specs the port refused until ROADMAP.md's ``item`` was ported
+    (the process fleet and elasticity) are valid in the reference, and
+    the port now accepts them, resolved alike
+    (``tests/test_torch_procmesh.py`` and ``test_torch_elastic.py`` run
+    them)."""
+    want = repro.RunSpec(**kw)            # valid in the reference
+    have = repro_torch.RunSpec(**kw)
+    assert dataclasses.asdict(have) == dataclasses.asdict(want)
 
 
 def _grid():
