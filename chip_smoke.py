@@ -34,8 +34,9 @@ Phases, each of which raises on failure:
      window, S not a multiple of the block, H = KV, and the reduced
      config's shape: error <= 2e-2 (bf16 output, float32 sums in
      another order); and K3 in float32 at the LM step's shape and in
-     bfloat16 at hd 256 (recurrentgemma-2b's 10 / 1 heads): <= 1e-4 in
-     float32, 2e-2 in bf16. K1's bfloat16 lane (bf16 state, float32 g,
+     bfloat16 at hd 256 (recurrentgemma-2b's 10 / 1 heads, and its
+     local blocks' S 4096 with window 2048): <= 1e-4 in float32, 2e-2
+     in bf16. K1's bfloat16 lane (bf16 state, float32 g,
      g_old bf16 or float32) at (2, 2**20): <= one bf16 ulp of the largest
      magnitude. K4 (3xTF32 on the tensor cores) at Mamba2-130M's training
      shape (B 4, S 2048, 24 heads, P 64, N 128, chunk 64), at S 2000, at
@@ -151,6 +152,25 @@ Phases, each of which raises on failure:
      (A = 2), the same gates, with launches per step K1 1, K2
      (L + 1 + L) * A * W = 196, K4 (L + L) * A * W = 192; and W=2 at
      ``mamba2-130m.reduced()``;
+ 6d. the other block kinds and archs, each fused then unfused from the
+     same seed through ``train.step.make_epoch_runner`` with the gates
+     of phase 6 (losses finite, fused against unfused within 2**-7
+     relative, the update on 2**20 sampled params within 5% in norm,
+     exact launches per step, counted by layer kind by
+     ``expected_launches``): qwen3-moe-30b-a3b's width cut to 2 layers
+     (d 2048, 32 / 4 heads of 128, qk_norm, 128 experts, top 8,
+     moe_d_ff 768, vocab 151936; 1,868,573,184 parameters) at seq 2048,
+     and recurrentgemma-2b's width cut to 5 layers (rec, rec, local and
+     the 2-layer rec tail; d 2560, 10 / 1 heads of 256, window 2048,
+     RG-LRU 10 heads, vocab 256000, tied; 1,048,665,600 parameters) at
+     seq 4096, both W 1, M 2, global batch 2, microbatch 1 (launches per
+     step K1 1, K2 18 and 42, K3 8 and 4); then ``reduced()`` of each of
+     the eight archs beyond Qwen2-7B and Mamba2-130M at W 2, seq 256,
+     global batch 4, microbatch 1, 3 timed epochs each. ``--archs`` runs
+     only the device phase, the build, phase 3's K3 cases in float32 and
+     at hd 256 (recurrentgemma-2b's local shape among them), K1 at the
+     MoE run's (1, 1,868,573,184) and this phase (with ``--profile``
+     also the two full-width runs' profiles);
  6b. telemetry (``repro_torch.obs``): fused runs through ``solve`` on
      ``dist-toy-logistic`` (p 8, d 1000) of Algorithm 2 (10 rounds),
      Algorithm 3 with speeds 1..8 (2 rounds) and stale D-SAGA (tau 100,
@@ -218,7 +238,10 @@ Phases, each of which raises on failure:
      against the plain version; K1 at the LM step's (1, 1,556,113,920)
      float32, also at the reduced shape and Mamba2-130M's (2,
      128,983,488), K2 also at 8192 x 768 and K3 also in float32 and at
-     hd 256 (``other_shapes``); K1's ``paths`` the LM runs. vr_epoch per epoch and per step at each convex path's shape
+     hd 256, without and with recurrentgemma-2b's window
+     (``other_shapes``), K1 also at the MoE run's (1, 1,868,573,184);
+     K1's ``paths`` the LM runs, phase 6d's included. vr_epoch per
+     epoch and per step at each convex path's shape
      (``EPOCH_SHAPES``), its plain version's time over the whole epoch
      (and per step), its bound
      (bytes per epoch) beside its serial floor (the probe
@@ -235,14 +258,16 @@ Phases, each of which raises on failure:
 
 With ``--profile`` it then traces every fused VR run of phases 4 and 5
 through ``solve`` and one fused epoch of each full-width LM (Qwen2
-width, Mamba2-130M, and Mamba2-130M unfused) with ``torch.profiler`` and
+width, Mamba2-130M, and Mamba2-130M unfused, the qwen3-moe-30b-a3b and
+recurrentgemma-2b widths) with ``torch.profiler`` and
 prints the device time, the device busy share against the same run
 untraced, the kernels that take the device time, and the LM backward's
 device time by autograd node.
 
 ``--sparse`` runs only the device phase, the build and phase 5b;
 ``--spmd`` only the device phase, the build and phase 4c; ``--fleet``
-only the device phase, the build and phase 6c.
+only the device phase, the build and phase 6c; ``--archs`` the device
+phase, the build and phase 6d (see there).
 
 ``--rates`` runs only the device phase, vr_epoch's device time at each
 convex path's shape, lazy_epoch's per epoch through its public wrapper
@@ -479,15 +504,17 @@ def phase_compare_flash(torch, fa_kernel, fa_ref):
 
 
 def phase_compare_flash_repaired(torch, fa_kernel, fa_ref):
-    """K3 in float32 at the Qwen2 slice's shape and in bfloat16 at hd 256;
-    returns the largest error of each."""
+    """K3 in float32 at the Qwen2 slice's shape and in bfloat16 at hd 256,
+    recurrentgemma-2b's local blocks (S 4096, 10 / 1 heads, window 2048)
+    included; returns the largest error of each."""
     worst = {}
     g = torch.Generator(device="cuda").manual_seed(4)
     for B, S, H, KV, hd, win, dt, tol in (
             (1, 1024, 28, 4, 128, None, torch.float32, 1e-4),
             (1, 300, 4, 1, 256, 64, torch.float32, 1e-4),
             (1, 1024, 10, 1, 256, None, torch.bfloat16, 2e-2),
-            (1, 200, 4, 2, 256, 16, torch.bfloat16, 2e-2)):
+            (1, 200, 4, 2, 256, 16, torch.bfloat16, 2e-2),
+            (1, 4096, 10, 1, 256, 2048, torch.bfloat16, 2e-2)):
         q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
                    .to(dt) for n in (H, KV, KV))
         out = fa_kernel.flash_attention(q, k, v, window=win)
@@ -505,6 +532,8 @@ def phase_compare_flash_repaired(torch, fa_kernel, fa_ref):
                                  f"error above {tol} abs + rel by {excess}")
         if win is None:
             worst[f"{key}_hd{hd}"] = err
+        if (S, win) == (4096, 2048):        # recurrentgemma-2b's local blocks
+            worst["bfloat16_hd256_local"] = err
     return worst
 
 
@@ -1288,10 +1317,11 @@ def phase_sparse(torch, kernels):
                 times=times, track=track)
 
 
-def lm_run(torch, cfg, tcfg, W, fused, kernels, sample):
+def lm_run(torch, cfg, tcfg, W, fused, kernels, sample,
+           timing_epochs=LM_TIMING_EPOCHS):
     """One LM run through the entry points a user calls: build the epoch
     runner and the state (seeded), then drive LM_EPOCHS epochs with every
-    kernel's count set to 0 just before, and LM_TIMING_EPOCHS more, each
+    kernel's count set to 0 just before, and ``timing_epochs`` more, each
     timed. Returns the run's record, with the losses, the sampled params
     and their update moved to the host; the state is freed."""
     import gc
@@ -1317,7 +1347,7 @@ def lm_run(torch, cfg, tcfg, W, fused, kernels, sample):
     p1 = state.params[:, sample]
     checksum = float(state.params.sum(dtype=torch.float64))
     timed_s = []
-    for _ in range(LM_TIMING_EPOCHS):
+    for _ in range(timing_epochs):
         t0 = time.perf_counter()
         state, _ = run(state)
         torch.cuda.synchronize()
@@ -1345,7 +1375,8 @@ def steps_per_s(rec):
     return dict(median=median, min=rates[0], max=rates[-1])
 
 
-def lm_pair(torch, cfg, tcfg, W, kernels, label):
+def lm_pair(torch, cfg, tcfg, W, kernels, label,
+            timing_epochs=LM_TIMING_EPOCHS):
     """The fused run and its unfused twin from the same seed, one after
     the other; checks finiteness, launches per step and agreement."""
     from repro_torch.models import model
@@ -1354,8 +1385,8 @@ def lm_pair(torch, cfg, tcfg, W, kernels, label):
     sample = torch.randint(0, n, (min(LM_SAMPLES, n),),
                            generator=torch.Generator().manual_seed(0)
                            ).to("cuda")
-    f = lm_run(torch, cfg, tcfg, W, True, kernels, sample)
-    u = lm_run(torch, cfg, tcfg, W, False, kernels, sample)
+    f = lm_run(torch, cfg, tcfg, W, True, kernels, sample, timing_epochs)
+    u = lm_run(torch, cfg, tcfg, W, False, kernels, sample, timing_epochs)
     steps, A = f["steps"], f["meta"]["accum"]
     want = {k: n * steps
             for k, n in expected_launches(cfg, A, W).items()}
@@ -1374,7 +1405,7 @@ def lm_pair(torch, cfg, tcfg, W, kernels, label):
         f"{u['epoch_s']} s; timed epochs fused {f['timed_epoch_s']} s, "
         f"unfused {u['timed_epoch_s']} s")
     for name, r in rate.items():
-        log(f"[lm] {label}: {name} steps/s over {LM_TIMING_EPOCHS} epochs: "
+        log(f"[lm] {label}: {name} steps/s over {timing_epochs} epochs: "
             f"median {r['median']!r}, min {r['min']!r}, max {r['max']!r}")
     log(f"[lm] {label}: peak memory fused {f['peak_bytes'] / 1e9:.3f} GB, "
         f"unfused {u['peak_bytes'] / 1e9:.3f} GB; param checksum fused "
@@ -1409,18 +1440,23 @@ def lm_pair(torch, cfg, tcfg, W, kernels, label):
 
 def expected_launches(cfg, A, W):
     """Launches per step of each kernel with fused=True and remat="block"
-    (L layers, A microbatches, W workers): the forward and the block's
-    recompute each launch K2 for every block norm (two per attn block, one
-    per ssm block) and K3 or K4 once per block, plus K2 once for the final
-    norm; K1 once; vr_epoch and lazy_epoch (the convex paths' kernels)
-    never."""
-    L = cfg.num_layers
-    ssm = cfg.family == "ssm"
-    norms = 1 if ssm else 2
+    (A microbatches, W workers), counted by layer kind: the forward and
+    the block's recompute each launch K2 for every block norm (one per
+    ssm block, two per other block) when the arch's norm is RMSNorm
+    (LayerNorm archs have none; qk_norm is plain), K3 once per attn or
+    local block (a softcapped arch runs it plain) and K4 once per ssm
+    block, plus K2 once for the final norm; K1 once; vr_epoch and
+    lazy_epoch (the convex paths' kernels) never."""
+    kinds = cfg.layer_kinds()
+    norms = sum(1 if k == "ssm" else 2 for k in kinds)
+    attn = sum(k in ("attn", "local") for k in kinds)
+    if cfg.attn_logit_softcap is not None:
+        attn = 0
+    rms = cfg.norm_type == "rmsnorm"
     return {"vr_update": 1, "vr_epoch": 0, "lazy_epoch": 0,
-            "rmsnorm": (2 * norms * L + 1) * A * W,
-            "flash_attention": 0 if ssm else 2 * L * A * W,
-            "ssd_scan": 2 * L * A * W if ssm else 0}
+            "rmsnorm": (2 * norms + 1) * A * W if rms else 0,
+            "flash_attention": 2 * attn * A * W,
+            "ssd_scan": 2 * kinds.count("ssm") * A * W}
 
 
 def lm_configs():
@@ -1473,6 +1509,71 @@ def phase_lm(torch, kernels):
                      "mamba2-130m L=24 W=2 S=2048"),
              lm_pair(torch, mred, mtred, 2, kernels,
                      "mamba2-130m reduced W=2 S=256")]
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 6d: the other block kinds and archs
+# ---------------------------------------------------------------------------
+
+ARCHS_TIMING_EPOCHS = 3         # timed epochs of each reduced arch's run
+LM_PATH_KEYS = ("label", "counts", "per_step", "steps", "steps_s",
+                "unfused_steps_s", "peak_bytes", "unfused_peak_bytes",
+                "loss_err", "update_err")   # an LM run in the result lines
+NEW_ARCHS = ("internvl2-26b", "qwen3-14b", "musicgen-large",
+             "qwen3-moe-30b-a3b", "starcoder2-15b", "recurrentgemma-2b",
+             "qwen2-moe-a2.7b", "qwen1.5-110b")
+
+
+def archs_configs():
+    """The slice's full-width runs: qwen3-moe-30b-a3b's width cut to 2
+    layers (seq 2048), and recurrentgemma-2b's width cut to 5 layers
+    (one (rec, rec, local) super-block and the 2-layer rec tail the
+    26-layer model ends with) at seq 4096, past its local window of
+    2048; both W 1, M 2, global batch 2, microbatch 1 (A 2), SGD, remat
+    "block"."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+
+    tcfg = TrainConfig(seq_len=2048, global_batch=2, microbatch=1,
+                       learning_rate=1e-2, optimizer="sgd", vr="centralvr",
+                       vr_table_size=2, local_epoch=1, remat="block", seed=0)
+    moe = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), num_layers=2)
+    rg = dataclasses.replace(get_arch("recurrentgemma-2b"), num_layers=5)
+    return ((moe, tcfg, "qwen3-moe-30b-a3b width L=2 W=1 S=2048"),
+            (rg, dataclasses.replace(tcfg, seq_len=4096),
+             "recurrentgemma-2b width L=5 W=1 S=4096"))
+
+
+def archs_reduced_tcfg():
+    """W 2 at seq 256, global batch 4, microbatch 1, for each new arch's
+    ``reduced()``."""
+    from repro_torch.config import TrainConfig
+    return TrainConfig(seq_len=256, global_batch=4, microbatch=1,
+                       learning_rate=0.1, optimizer="sgd", vr="centralvr",
+                       vr_table_size=2, local_epoch=1, remat="block", seed=0)
+
+
+def phase_archs(torch, kernels):
+    """Phase 6d: the MoE and RecurrentGemma widths, then every new arch's
+    ``reduced()`` at W 2, each fused against unfused (``lm_pair``'s
+    gates)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    runs = []
+    for cfg, tcfg, label in archs_configs():
+        log(f"[lm] {label}: {model.ParamLayout(cfg).n} params, layer kinds "
+            f"{list(cfg.layer_kinds())}")
+        runs.append(lm_pair(torch, cfg, tcfg, 1, kernels, label))
+    tred = archs_reduced_tcfg()
+    for name in NEW_ARCHS:
+        runs.append(lm_pair(torch, get_arch(name).reduced(), tred, 2,
+                            kernels, f"{name} reduced W=2 S=256",
+                            timing_epochs=ARCHS_TIMING_EPOCHS))
+    log(f"[path] phase 6d (archs) in {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -2650,35 +2751,48 @@ def time_rmsnorm(torch, rms_kernel, rms_ref, rows=1024, d=3584):
 
 
 def time_flash(torch, fa_kernel, fa_ref, B=1, S=1024, H=28, KV=4, hd=128,
-               dtype="bfloat16"):
+               dtype="bfloat16", window=None):
     dt = getattr(torch, dtype)
     q = torch.randn(B, S, H, hd, device="cuda").to(dt)
     k = torch.randn(B, S, KV, hd, device="cuda").to(dt)
     v = torch.randn(B, S, KV, hd, device="cuda").to(dt)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    kernel = lambda: fa_kernel.flash_attention(q, k, v)        # noqa: E731
+    if window is None:
+        sdpa_kw = dict(is_causal=True)
+    else:                           # key j visible iff i - window < j <= i
+        pos = torch.arange(S, device="cuda")
+        gap = pos[:, None] - pos[None, :]
+        sdpa_kw = dict(attn_mask=(gap >= 0) & (gap < window))
+    kernel = lambda: fa_kernel.flash_attention(  # noqa: E731
+        q, k, v, window=window)
     rec = {"ms": graph_ms(torch, kernel, calls=50, replays=10),
            "plain_ms": graph_ms(torch, lambda: fa_ref.flash_attention_ref(
-               q, k, v), calls=2, replays=3),
+               q, k, v, window=window), calls=2, replays=3),
            "library_ms": graph_ms(
                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True),
+                   qt, kt, vt, enable_gqa=True, **sdpa_kw),
                calls=50, replays=10),
            "eager_ms": eager_ms(torch, kernel, calls=200)}
-    # causal: the score and value products over the S(S+1)/2 visible pairs;
-    # bf16 on the tensor cores, float32 outside them
-    flops = 2 * 2 * (S * (S + 1) // 2) * hd * H * B
+    # the visible (query, key) pairs: S(S+1)/2 causal, w(w+1)/2 + (S - w)w
+    # with a window w
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    # the score and value products over the visible pairs; bf16 on the
+    # tensor cores, float32 outside them
+    flops = 2 * 2 * pairs * hd * H * B
     bytes_s = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
                / PEAK_BYTES_S)
     ops_s = flops / PEAK_FLOPS["bf16_tensor" if dtype == "bfloat16"
                                else "float32"]
-    rec.update(shape=[B, S, H, KV, hd], dtype=dtype, flops=flops,
+    rec.update(shape=[B, S, H, KV, hd], dtype=dtype, window=window,
+               flops=flops,
                bound_ms=max(bytes_s, ops_s) * 1e3,
                bound_by="bytes" if bytes_s >= ops_s else "operations")
     rec.update(tflops=flops / rec["ms"] / 1e9,
                library_tflops=flops / rec["library_ms"] / 1e9,
                bound_share=rec["bound_ms"] / rec["ms"])
-    log(f"[time] flash_attention {rec['shape']} {dtype}: kernel {rec['ms']!r} "
+    log(f"[time] flash_attention {rec['shape']} {dtype} window {window}: "
+        f"kernel {rec['ms']!r} "
         f"ms/launch (graph replay), {rec['eager_ms']!r} ms from Python, "
         f"{rec['tflops']!r} TFLOP/s, {rec['bound_share']!r} of the bound; "
         f"plain {rec['plain_ms']!r} ms; SDPA {rec['library_ms']!r} ms, "
@@ -3142,6 +3256,27 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--archs" in sys.argv[1:]:
+        fa_repaired_err = phase_compare_flash_repaired(torch, fa_kernel,
+                                                       fa_ref)
+        (moe_cfg, _, _), _ = archs_configs()
+        moe_shape = vr_update_lm(torch, vr_kernel, vr_ref,
+                                 (1, model.ParamLayout(moe_cfg).n),
+                                 timed=True)
+        archs = phase_archs(torch, kernels)
+        if "--profile" in sys.argv[1:]:
+            for cfg, tcfg, label in archs_configs():
+                phase_profile_lm(torch, label, cfg, tcfg, 1)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"archs": {
+            "flash_attention_max_abs_err": fa_repaired_err,
+            "vr_update": moe_shape,
+            "paths": [{k: r[k] for k in LM_PATH_KEYS} for r in archs]}}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sparse" in sys.argv[1:]:
         sparse = phase_sparse(torch, kernels)
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -3166,11 +3301,15 @@ def main():
     lm_red_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                 (2, model.ParamLayout(reduced).n),
                                 timed=False)
+    (moe_cfg, _, _), _ = archs_configs()
+    moe_shape = vr_update_lm(torch, vr_kernel, vr_ref,
+                             (1, model.ParamLayout(moe_cfg).n), timed=True)
     paths = phase_main_path(torch, kernels)
     paths += phase_family(torch, kernels)
     sparse = phase_sparse(torch, kernels)
     spmd = phase_spmd(torch, kernels)
     lm = phase_lm(torch, kernels)
+    lm += phase_archs(torch, kernels)
     telemetry = phase_obs(torch, kernels)
     fleet = phase_fleet(torch, kernels)
     (mamba_full, _), _ = mamba_configs()
@@ -3184,6 +3323,8 @@ def main():
     fa_time = time_flash(torch, fa_kernel, fa_ref)
     fa_f32_time = time_flash(torch, fa_kernel, fa_ref, dtype="float32")
     fa_hd256_time = time_flash(torch, fa_kernel, fa_ref, H=10, KV=1, hd=256)
+    fa_local_time = time_flash(torch, fa_kernel, fa_ref, S=4096, H=10, KV=1,
+                               hd=256, window=2048)
     ssd_time = time_ssd(torch, ssd_kernel, ssd_ref)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch)
@@ -3193,6 +3334,8 @@ def main():
         for fused in (True, False):
             phase_profile_lm(torch, "mamba2-130m L=24 W=2", mcfg, mtcfg, 2,
                              fused=fused)
+        for cfg, tcfg, label in archs_configs():
+            phase_profile_lm(torch, label, cfg, tcfg, 1)
     total = dict.fromkeys(kernels, 0)
     total["vr_epoch"] = (sum(p["launches"] for p in paths)
                          + telemetry["launches"])
@@ -3205,11 +3348,7 @@ def main():
     for name, n in fleet["launches"].items():
         total[name] += n
     mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
-    lm_paths = [{k: r[k] for k in ("label", "counts", "per_step", "steps",
-                                   "steps_s", "unfused_steps_s",
-                                   "peak_bytes",
-                                   "unfused_peak_bytes", "loss_err",
-                                   "update_err")} for r in lm]
+    lm_paths = [{k: r[k] for k in LM_PATH_KEYS} for r in lm]
     head = epoch_times[0]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(f"[card] {smi}")
@@ -3223,7 +3362,7 @@ def main():
                                     "shape", "dtype")},
         "library_ms": None,
         "convex_shapes_max_abs_err": worst["float64"],
-        "other_shapes": [lm_red_shape, mamba_shape],
+        "other_shapes": [lm_red_shape, mamba_shape, moe_shape],
         "bf16_lane_max_abs_err": vr_bf16_err, "paths": lm_paths,
         "fleet_lm": {k: v for k, v in fleet["lm"].items()
                      if k not in ("losses", "resumed_losses")}}, {
@@ -3281,7 +3420,9 @@ def main():
                                    "bound_share")},
         "other_shapes": [dict(r, max_abs_err=fa_repaired_err[key])
                          for r, key in ((fa_f32_time, "float32_hd128"),
-                                        (fa_hd256_time, "bfloat16_hd256"))]}, {
+                                        (fa_hd256_time, "bfloat16_hd256"),
+                                        (fa_local_time,
+                                         "bfloat16_hd256_local"))]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:29",

@@ -232,7 +232,8 @@ def lm_params_from_jax(params_np, cfg):
     position, each leaf with a leading super-block axis) is unstacked
     into one entry per layer, in layer order (super-block s, position j
     is layer s*len(pattern) + j), followed by the ``layers/tail``
-    entries."""
+    entries; every leaf of a block (MoE and RG-LRU ones too) and the
+    frontend stub's ``frontend_proj`` are carried as they are."""
     def tensor(a):
         a = np.array(a)
         if a.dtype.name == "bfloat16":   # through float32, which holds it
@@ -248,10 +249,13 @@ def lm_params_from_jax(params_np, cfg):
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{cfg.name}: the reference params hold "
                          f"{len(layers)} layers, the config {cfg.num_layers}")
-    return {"embed": _tree_map(tensor, params_np["embed"]),
-            "layers": layers,
-            "final_norm": _tree_map(tensor, params_np["final_norm"]),
-            "head": _tree_map(tensor, params_np["head"])}
+    out = {"embed": _tree_map(tensor, params_np["embed"]),
+           "layers": layers,
+           "final_norm": _tree_map(tensor, params_np["final_norm"]),
+           "head": _tree_map(tensor, params_np["head"])}
+    if "frontend_proj" in params_np:
+        out["frontend_proj"] = tensor(params_np["frontend_proj"])
+    return out
 
 
 def tokens_from_jax(tokens) -> torch.Tensor:

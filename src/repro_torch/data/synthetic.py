@@ -55,6 +55,22 @@ def epoch_tokens(cfg: ModelConfig, seed: int, *, workers: int, steps: int,
     return out
 
 
+def frontend_embeds(cfg: ModelConfig, seed: int, batch: int,
+                    dtype=torch.float32):
+    """STUB modality frontend: pre-computed patch / frame embeddings
+    (batch, frontend_tokens, d) on the CPU, the reference's stand-in for
+    an encoder's output (normal draws, each token averaged with its
+    neighbour's, so neighbouring tokens correlate); None for an arch
+    without frontend tokens."""
+    if not (cfg.frontend and cfg.frontend_tokens):
+        return None
+    gen = _generator(seed, 999)
+    base = torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                       generator=gen, dtype=dtype)
+    # smooth across tokens (neighbouring patches correlate)
+    return 0.5 * base + 0.5 * torch.roll(base, 1, dims=1)
+
+
 def eval_batch(cfg: ModelConfig, seed: int, batch: int,
                seq: int) -> torch.Tensor:
     """Held-out batch (indices offset far from the training table)."""

@@ -4,7 +4,8 @@ head — the port of ``repro/models/layers.py``.
 Params are plain nested dicts of tensors, in the reference's layouts.
 ``init_*`` takes ``new(shape, init)``, a callable that returns the tensor
 for one parameter (``init`` is ``"ones"``, ``"zeros"``, ``"log_arange"``
-— log(1..n), the SSM's A_log — or ``("normal", std[, (axis, keep)])``,
+— log(1..n), the SSM's A_log —, ``"rglru_lambda"`` — the RG-LRU's
+decay parameter, drawn uniform — or ``("normal", std[, (axis, keep)])``,
 normal with the entries from ``keep`` on along ``axis`` zeroed): the
 caller decides whether that allocates, fills a view of a flat buffer, or
 only records the shape (see ``models/model.py``). Creation order is the

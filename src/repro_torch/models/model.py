@@ -1,12 +1,18 @@
 """Top-level model API of the port, train path: init, forward and the
-next-token loss — the port of ``repro/models/model.py`` for the dense and
-Mamba2 (ssm) archs without a frontend (decode, serving and the VLM/audio
-frontend stubs are still to port, see ROADMAP.md).
+next-token loss (+ the MoE aux loss) — the port of
+``repro/models/model.py`` for every arch of the zoo, the VLM/audio
+frontend stub included (decode and serving are still to port, see
+ROADMAP.md).
+
+Batches are dicts: ``{"tokens": (B, S) int, ["labels": (B, S)],
+["frontend_embeds": (B, S_f, d)]}``. For a frontend arch the sequence is
+S_f + S: the projected embeddings, then the tokens; the loss leaves the
+embedding positions out.
 
 Params are a nested dict ``{"embed": {"tok"}, "layers": [per-layer
-dict, ...], "final_norm": {"scale"}, "head": {"w"}}`` in the reference's
-layouts; ``convert.lm_params_from_jax`` maps the reference's params
-(stacked layers) onto it.
+dict, ...], "final_norm": {"scale"}, "head": {"w"}[, "frontend_proj"]}``
+in the reference's layouts; ``convert.lm_params_from_jax`` maps the
+reference's params (stacked layers) onto it.
 """
 from __future__ import annotations
 
@@ -16,28 +22,29 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, rglru, transformer
 
 
 def build_params(cfg: ModelConfig, new):
     """The params tree, each leaf made by ``new(shape, init)`` in layout
     order (see ``layers``)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend stub is not ported yet "
-            "(ROADMAP.md queue 1, item 12)")
-    return {
+    p = {
         "embed": layers.init_embed(cfg, new),
         "layers": transformer.init_stack(cfg, new),
         "final_norm": layers.init_norm(cfg, new),
         "head": layers.init_lm_head(cfg, new),
     }
+    if cfg.frontend is not None:
+        d = cfg.d_model
+        p["frontend_proj"] = new((d, d), layers.dense(d))
+    return p
 
 
 def fill_(t: torch.Tensor, init, generator: torch.Generator):
     """Initialize ``t`` in place (``init`` as in ``layers``): ones, zeros,
-    log(1..n), or normal(0, std) drawn from ``generator`` (on t's device),
-    with an optional zeroed tail along one axis (padded heads)."""
+    log(1..n), the RG-LRU's lambda, or normal(0, std) drawn from
+    ``generator`` (on t's device), with an optional zeroed tail along one
+    axis (padded heads)."""
     if init == "ones":
         return t.fill_(1.0)
     if init == "zeros":
@@ -45,6 +52,12 @@ def fill_(t: torch.Tensor, init, generator: torch.Generator):
     if init == "log_arange":
         return t.copy_(torch.arange(1, t.numel() + 1, dtype=torch.float32,
                                     device=t.device).log_())
+    if init == "rglru_lambda":
+        # softplus^-1(-log u / c), u uniform in [0.9, 0.999]
+        u = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+        u.uniform_(0.9, 0.999, generator=generator)
+        return t.copy_(torch.log(torch.expm1(-torch.log(u)
+                                             / rglru.C_RGLRU)))
     t.normal_(0.0, 1.0, generator=generator).mul_(init[1])
     if len(init) == 3:
         axis, keep = init[2]
@@ -143,27 +156,41 @@ class ParamLayout:
         return flat
 
 
-def forward(p, cfg: ModelConfig, tokens, *, remat: str = "block",
-            window: Optional[int] = None):
-    """tokens (B, S) -> logits (B, S, vocab) in float32."""
+def _embed_inputs(p, cfg: ModelConfig, batch):
     compute = getattr(torch, cfg.dtype)
-    x = layers.embed_tokens(p["embed"], tokens).to(compute)
-    x = transformer.apply_stack_train(p["layers"], cfg, x, remat=remat,
-                                      window=window)
+    x = layers.embed_tokens(p["embed"], batch["tokens"]).to(compute)
+    fe = batch.get("frontend_embeds")
+    if cfg.frontend is not None and fe is not None:
+        fe = fe.to(compute) @ p["frontend_proj"].to(compute)
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def forward(p, cfg: ModelConfig, batch, *, remat: str = "block",
+            window: Optional[int] = None):
+    """Full-sequence forward: (logits (B, S_f + S, vocab) in float32,
+    aux)."""
+    x = _embed_inputs(p, cfg, batch)
+    x, aux = transformer.apply_stack_train(p["layers"], cfg, x, remat=remat,
+                                           window=window)
     x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
     logits = layers.lm_logits(p["head"], p["embed"], x, cfg.tie_embeddings)
-    return logits.to(torch.float32)
+    return logits.to(torch.float32), aux
 
 
 def loss_fn(p, cfg: ModelConfig, batch, *, remat: str = "block",
             window: Optional[int] = None):
-    """Next-token cross-entropy; labels default to the shifted tokens."""
+    """Next-token cross-entropy + the MoE aux loss; labels default to the
+    shifted tokens. Frontend positions are left out of the loss."""
+    logits, aux = forward(p, cfg, batch, remat=remat, window=window)
     tokens = batch["tokens"]
-    logits = forward(p, cfg, tokens, remat=remat, window=window)
     labels = batch.get("labels")
+    n_f = logits.shape[1] - tokens.shape[1]        # frontend positions
     if labels is None:
         labels = tokens[:, 1:]
-        logits = logits[:, :-1]
+        logits = logits[:, n_f:-1]
+    else:
+        logits = logits[:, n_f:]
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
-    return nll.mean()
+    return nll.mean() + aux

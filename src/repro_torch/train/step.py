@@ -24,9 +24,12 @@ params, gbar and the losses are averaged across the ranks by all-reduce
 (``core/spmd.py``'s collectives).
 
 With ``fused`` on, each worker's forward and backward run under
-``models.kernel_ctx`` (K2 RMSNorm, K3 flash attention, K4 SSD scan,
-relaunched by the ``remat="block"`` recompute), and with SGD the VR
-correction and update are one K1 launch per step.
+``models.kernel_ctx`` (K2 RMSNorm, K3 flash attention for ``attn`` and
+``local`` blocks, K4 SSD scan, relaunched by the ``remat="block"``
+recompute), and with SGD the VR correction and update are one K1 launch
+per step. The loss is the model's: next-token cross-entropy plus the
+MoE load-balance loss, on the text tokens alone (the reference's runner
+passes no frontend embeddings either).
 """
 from __future__ import annotations
 
@@ -120,9 +123,15 @@ def _local_grads(params_row, layout, cfg: ModelConfig, tcfg: TrainConfig,
     for a in range(A):
         loss = model.loss_fn(tree, cfg, {"tokens": tokens[a]},
                              remat=tcfg.remat)
-        grads = list(torch.autograd.grad(loss, leaves))
+        # a leaf the loss does not reach (the frontend stub's
+        # frontend_proj: the runner feeds no frontend embeddings) has
+        # gradient 0
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
         for j, seg in enumerate(outs):
-            if a == 0:
+            if grads[j] is None:
+                if a == 0:
+                    seg.zero_()
+            elif a == 0:
                 seg.copy_(grads[j]).div_(A)
             else:
                 seg.add_(grads[j].to(torch.float32) / A)
@@ -196,7 +205,7 @@ def _check_kernel_shapes(cfg: ModelConfig):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     kinds = set(cfg.layer_kinds())
-    if "attn" in kinds and cfg.attn_logit_softcap is None:
+    if kinds & {"attn", "local"} and cfg.attn_logit_softcap is None:
         fa_kernel.check_supported(cfg.head_dim, getattr(torch, cfg.dtype))
     if "ssm" in kinds:
         ssd_kernel.check_supported(cfg.ssm_chunk, cfg.ssm_state,

@@ -125,10 +125,8 @@ def test_lm_resume_carries_every_vr_mode(tmp_path, vr, opt):
     assert resumed.final_eval_loss == full.final_eval_loss
 
 
-def test_fused_mamba2_resume_continues_trajectory(tmp_path):
-    """The kernels' path (``fused=True``: K1, K2, K4, their plain versions
-    on the CPU) at ``mamba2-130m.reduced()``: resume == uninterrupted."""
-    cfg = get_arch("mamba2-130m").reduced()
+def _fused_resume(tmp_path, arch):
+    cfg = get_arch(arch).reduced()
     tcfg = TrainConfig(seq_len=16, global_batch=4, microbatch=2,
                        optimizer="sgd", learning_rate=0.1, vr="centralvr",
                        vr_table_size=2, local_epoch=1)
@@ -141,6 +139,18 @@ def test_fused_mamba2_resume_continues_trajectory(tmp_path):
                                 resume=True, **kw)
     assert first.losses + resumed.losses == full.losses
     assert resumed.final_eval_loss == full.final_eval_loss
+
+
+def test_fused_mamba2_resume_continues_trajectory(tmp_path):
+    """The kernels' path (``fused=True``: K1, K2, K4, their plain versions
+    on the CPU) at ``mamba2-130m.reduced()``: resume == uninterrupted."""
+    _fused_resume(tmp_path, "mamba2-130m")
+
+
+def test_fused_moe_resume_continues_trajectory(tmp_path):
+    """The kernels' path (K1, K2, K3) at ``qwen3-moe-30b-a3b.reduced()``,
+    its routed FFN and aux loss included: resume == uninterrupted."""
+    _fused_resume(tmp_path, "qwen3-moe-30b-a3b")
 
 
 def test_lm_resume_refuses_a_step_off_the_epoch_boundary(tmp_path):

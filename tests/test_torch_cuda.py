@@ -1,9 +1,10 @@
 """Tests of the PyTorch port that need an NVIDIA card: the hand-written
 kernels (K1 vr_update and its epoch route vr_epoch, the sparse driver's
 lazy_epoch, K2 rmsnorm, K3 flash_attention, K4 ssd_scan) against their
-plain versions, on the card, the fused convex solves, the sparse route
-and the fused Mamba2 step, and the fused paths' refusal to fall back when
-a kernel does not build.
+plain versions, on the card, the fused convex solves, the sparse route,
+the fused Mamba2 step, the fused forward of the MoE and RG-LRU / local
+attention archs, and the fused paths' refusal to fall back when a kernel
+does not build.
 
 Run them on a machine with a Hopper card (this file imports no jax, and
 ``--noconftest`` skips the suite's jax set-up):
@@ -514,6 +515,7 @@ def test_vr_update_bf16_lane_matches_plain(device, saga, old_dtype):
     (1, 300, 4, 1, 256, 64, torch.float32),       # hd 256, window, ragged
     (1, 1024, 10, 1, 256, None, torch.bfloat16),  # recurrentgemma-2b's
     (1, 200, 4, 2, 256, 16, torch.bfloat16),
+    (1, 4096, 10, 1, 256, 2048, torch.bfloat16),  # its local blocks
 ])
 def test_flash_kernel_float32_and_hd256_match_plain(device, B, S, H, KV, hd,
                                                     window, dtype):
@@ -645,6 +647,45 @@ def test_fused_mamba2_step_launches_k4_and_matches_unfused(device):
                             if fused else 0)
     torch.testing.assert_close(losses[True], losses[False], rtol=2.0 ** -7,
                                atol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "recurrentgemma-2b"])
+def test_fused_forward_of_the_other_block_kinds_matches_the_cpu(device,
+                                                                arch):
+    """The reduced MoE arch and RecurrentGemma (rec, rec, local; seq 64
+    past its window of 16) in float32: the forward under the kernels on
+    the card launches K2 for every norm and K3 for every attention block
+    (with the local window), and its logits and loss agree with the
+    plain forward of the same params and tokens on the CPU."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import kernel_ctx, model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    batch = {"tokens": synthetic.microbatch_tokens(cfg, 0, 0, 0, 2, 64)}
+    want_logits, _ = model.forward(tree, cfg, batch, remat="none")
+    want = model.loss_fn(tree, cfg, batch, remat="none")
+    tree_d = model.tree_map(lambda t: t.to(device), tree)
+    batch_d = {"tokens": batch["tokens"].to(device)}
+    before = (rms_kernel.launches, fa_kernel.launches)
+    with kernel_ctx.scope(True):
+        logits, _ = model.forward(tree_d, cfg, batch_d, remat="none")
+        got = model.loss_fn(tree_d, cfg, batch_d, remat="none")
+    torch.cuda.synchronize()
+    kinds = cfg.layer_kinds()
+    attn = sum(k in ("attn", "local") for k in kinds)
+    assert (rms_kernel.launches - before[0],
+            fa_kernel.launches - before[1]) == (2 * (2 * len(kinds) + 1),
+                                                2 * attn)
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=1e-3,
+                               atol=1e-3)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("dtype,param_dtype", [("float32", "float32"),

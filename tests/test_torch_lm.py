@@ -77,17 +77,28 @@ def test_slice_size_at_full_width():
 
 
 def test_other_block_kinds_raise_naming_the_roadmap_item():
-    """ssm blocks are ported (tests/test_torch_ssm.py); the hybrid
-    recurrent blocks and MoE FFNs are not."""
+    """The hybrid recurrent blocks, local attention and MoE FFNs are
+    ported (tests/test_torch_archs.py): such configs now build with the
+    reference's layout, and no text of the port names the item that
+    listed them as still to port."""
+    from repro.config import ModelConfig as JModelConfig
     base = dict(num_layers=3, d_model=32, num_heads=2, num_kv_heads=2,
                 d_ff=64, vocab_size=64)
-    for cfg in (ModelConfig(name="h", family="hybrid",
-                            block_pattern=("rec", "rec", "attn"),
-                            rglru_heads=2, local_window=8, **base),
-                ModelConfig(name="m", family="moe", num_experts=4,
-                            num_experts_per_tok=2, moe_d_ff=32, **base)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            model.ParamLayout(cfg)
+    for kw in (dict(name="h", family="hybrid",
+                    block_pattern=("rec", "rec", "local"), rglru_heads=2,
+                    local_window=8, **base),
+               dict(name="m", family="moe", num_experts=4,
+                    num_experts_per_tok=2, moe_d_ff=32, **base)):
+        layout = model.ParamLayout(ModelConfig(**kw))
+        ref = jax.eval_shape(lambda k: jmodel.init_params(JModelConfig(**kw),
+                                                          k),
+                             jax.random.PRNGKey(0))
+        assert layout.n == jmodel.param_count_actual(ref)
+    for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(d, n)) as f:
+                    assert "item 12" not in f.read(), n
 
 
 def test_synthetic_stream_is_a_finite_sum():
@@ -425,32 +436,57 @@ def test_bf16_master_epoch_runner_matches_reference(vr, W, fused):
         assert diff <= 0.02 * (want - start).norm()
 
 
-def test_fused_step_calls_each_kernel_as_the_chip_run_counts(monkeypatch):
-    """Per step with fused=True and remat="block" (L layers, A
-    microbatches): K2 (2L + 1 forward + 2L recompute) * A times, K3
-    (L + L) * A, K1 once — the launch counts chip_smoke.py holds the card
-    to. Counted here at the wrappers, which run their plain versions."""
-    calls = {"rmsnorm": 0, "flash_attention": 0, "vr_update": 0}
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,per_step,windows", [
+    ("qwen2-7b", {"rmsnorm": 18, "flash_attention": 8}, {None}),
+    ("qwen3-moe-30b-a3b", {"rmsnorm": 18, "flash_attention": 8}, {None}),
+    ("recurrentgemma-2b", {"rmsnorm": 26, "flash_attention": 4}, {16}),
+    ("musicgen-large", {"rmsnorm": 0, "flash_attention": 8}, {None})])
+def test_fused_step_calls_each_kernel_as_the_chip_run_counts(
+        monkeypatch, arch, per_step, windows):
+    """Per step with fused=True and remat="block" (A = 2 microbatches,
+    W = 1), counted by layer kind as chip_smoke.py's
+    ``expected_launches`` counts them: K2 (2 * norms + 1) * A (two norms
+    per attn, local or rec block; none for the LayerNorm archs), K3
+    2 * (attn + local blocks) * A (a local block with its window), K1
+    once. Counted here at the wrappers, which run their plain versions."""
+    calls = {"rmsnorm": 0, "flash_attention": 0, "ssd_scan": 0,
+             "vr_update": 0}
+    seen_windows = set()
 
     def counting(module, name):
         fn = getattr(module, name)
 
         def wrapper(*a, **k):
             calls[name] += 1
+            if name == "flash_attention":
+                seen_windows.add(k.get("window"))
             return fn(*a, **k)
         monkeypatch.setattr(module, name, wrapper)
     counting(rms_kernel, "rmsnorm")
     counting(fa_kernel, "flash_attention")
+    counting(ssd_kernel, "ssd_scan")
     counting(vr_kernel, "vr_update")
-    _, cfg = cfgs()
+    _, cfg = cfgs(arch=arch)
     tcfg = TrainConfig(**train_kw("centralvr", 1))
     run, meta = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True,
                                         device="cpu")
     state, _ = run(tstep.init_train_state(cfg, tcfg, 1, device="cpu"))
-    L, A, steps = cfg.num_layers, meta["accum"], 2
-    assert calls == {"rmsnorm": (4 * L + 1) * A * steps,
-                     "flash_attention": 2 * L * A * steps,
-                     "vr_update": steps}
+    A, steps = meta["accum"], 2
+    assert A == 2
+    want = dict(per_step, ssd_scan=0, vr_update=1)
+    assert calls == {k: v * steps for k, v in want.items()}
+    expected = _chip_smoke().expected_launches(cfg, A, 1)
+    assert {k: expected[k] for k in calls} == want
+    assert seen_windows == windows
 
 
 def test_run_training_matches_reference():
