@@ -55,12 +55,13 @@ Phases, each of which raises on failure:
   4. convex main path, float64, through ``repro_torch.solve`` with
      fused=True:
      CentralVR-Sync (Algorithm 2) at p=8 on the paper's §6.2
-     ``dist-toy-logistic`` (n=5000 per worker, d=1000) and CentralVR
-     (Algorithm 1) on ``millionsong`` (n=46371, d=90), 10 rounds each.
-     vr_epoch must launch exactly once per fused epoch call (the init
-     epoch and each round: 11) and K1 never; the trajectory must match
-     the unfused run with the same visit orders to 1e-9; every rel must
-     be finite and the last below the first;
+     ``dist-toy-logistic`` (n=5000 per worker, d=1000), 10 rounds, and
+     CentralVR (Algorithm 1) on ``millionsong`` (n=46371, d=90), 3
+     rounds (``MS_ROUNDS``: its unfused twin is the script's slowest
+     run). vr_epoch must launch exactly once per fused epoch call (the
+     init epoch and each round: 11 and 4) and K1 never; the trajectory
+     must match the unfused run with the same visit orders to 1e-9;
+     every rel must be finite and the last below the first;
   5. the rest of the convex family through ``repro_torch.solve``, each
      VR run fused and then unfused on the same draws: the paper's Fig. 1
      panel on ``toy-logistic`` (n 5000, d 20; CentralVR, SVRG with
@@ -88,7 +89,8 @@ Phases, each of which raises on failure:
      D-SAGA (tau 100, 20 rounds), distributed SGD, EASGD and PS-SVRG (2
      rounds each); CentralVR-Sync over NCCL at world = the card count
      (1 here, so p = 1) and Algorithm 1 on ``millionsong`` in a group of
-     one rank; Mamba2-130M at full width and depth, W = 2, fused, over 2
+     one rank; Mamba2-130M at full width, 8 of its 24 layers
+     (``SPMD_LM_LAYERS``), W = 2, fused, over 2
      ranks sharing the card, 2 epochs from the seed of the vmap W = 2 run
      made here first. Gates: every rank on the card; each rank launched
      vr_epoch exactly once per fused epoch call of its own worker (the
@@ -144,7 +146,8 @@ Phases, each of which raises on failure:
      2**20 sampled coordinates, to 5% in norm. Launches per step must be
      exactly K1 1, K2 (2L + 1 + 2L) * A = 18, K3 (L + L) * A = 8 (the
      recompute under remat relaunches K2 and K3). Each run then trains
-     10 more epochs, each timed, for its steps/s (median, least, most).
+     10 more epochs (Mamba2-130M at full width 4, phase 6d's two widths
+     5), each timed, for its steps/s (median, least, most).
      Then W=2 at ``qwen2-7b.reduced()``, fused against unfused, held the
      same way. Then Mamba2-130M at its full published width and depth (24
      SSD blocks, d 768, state 128, vocab 50280, tied head; 128,983,488
@@ -224,7 +227,38 @@ Phases, each of which raises on failure:
      the bytes a save writes. Files under ``build/fleet_smoke/``, the
      checkpoints deleted afterwards. ``--fleet`` runs only the device
      phase, the build and this phase;
-  7. the ``kernels`` line: per kernel its launches on the main paths, its
+  7. serving (``repro_torch.serve``): Qwen2-7B at its full width and
+     depth (28 layers, 7,615,616,512 parameters drawn in float32 and
+     cast once to bfloat16) on the paged engine (width 8, block 16,
+     ``max_seq_len`` 640, prefill buckets 16 / 64 / 128) over 16
+     requests (poisson arrivals, gap 4, prompts cycled over 128 / 256 /
+     512 tokens, 64 new tokens cycled down to 16), which forces
+     retirements and block reuse; the same trace on the dense oracle
+     sharing the cast params; the 3 of its requests with the fewest new
+     tokens served alone; a burst of
+     4 requests (prompt 128, 16 new) on the engine and on
+     ``run_host_loop`` at width 4, in bfloat16 (their ids compared and
+     printed) and in float32 compute (gated). Gates: paged ids equal the
+     dense ids and each request alone its ids in the batch, bit for bit;
+     in float32 the prefill's first-token logits and the decode logits
+     teacher-forced on the engine's ids within 2**-7 of their largest
+     magnitude, and the legacy ids equal the engine's as far as the
+     legacy top-2 margin exceeds that bound (printed); the decode step
+     under ``kernel_ctx`` (K2 for every norm: 57 launches) within K2's
+     bfloat16 tolerance (1e-2 of the largest logit) of the plain step;
+     logits finite; every pool block free at the end. Then
+     qwen3-moe-30b-a3b.reduced() on the engine (paged against dense),
+     Mamba2-130M at full width and depth and recurrentgemma-2b.reduced()
+     through the legacy loop (ids in the vocabulary; at float32 compute
+     the per-token decode over the prompt against the forward's last
+     logits within 2**-7). ``[serve]`` lines give prefill and decode tokens/s,
+     p50 / p95 latency, the decode step's and a 128-token prefill
+     chunk's device ms (CUDA events), the decode step's device ops
+     (launches, one ``torch.profiler`` pass) and byte bound (weights and
+     the gathered KV over 3.35 TB/s) with the share reached, first-call
+     seconds per program, peak memory, KV-pool bytes and blocks reused;
+     ``--profile`` adds the decode step's busy share and top operations;
+  8. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape; CUDA events for K1 at
      the LM shapes and for vr_epoch), its bound on this card, the time of
@@ -267,7 +301,8 @@ device time by autograd node.
 ``--sparse`` runs only the device phase, the build and phase 5b;
 ``--spmd`` only the device phase, the build and phase 4c; ``--fleet``
 only the device phase, the build and phase 6c; ``--archs`` the device
-phase, the build and phase 6d (see there).
+phase, the build and phase 6d (see there); ``--serve`` the device
+phase, the build and phase 7.
 
 ``--rates`` runs only the device phase, vr_epoch's device time at each
 convex path's shape, lazy_epoch's per epoch through its public wrapper
@@ -320,11 +355,19 @@ VR_OPS_PER_ELEMENT = 7
 # table' is g itself)
 VR_STREAMS = 7
 ROUNDS = 10
+# millionsong's rounds in phase 4: cut from ROUNDS so that its unfused twin
+# (81.7-108.5 s at 10 rounds) leaves room for phase 7 in the script's time
+MS_ROUNDS = 3
 # RMSNorm: x*x, the sum, *r, *scale per element (float32 arithmetic)
 RMS_OPS_PER_ELEMENT = 4
 L2_BYTES = 50 * 2**20           # H100 L2
 LM_EPOCHS = 2
 LM_TIMING_EPOCHS = 10           # more epochs after the agreement check, timed
+# timed epochs of the slower full-width runs, cut from LM_TIMING_EPOCHS to
+# keep the script in its time: Mamba2-130M (~3 s an epoch fused, ~3.6 s
+# unfused) and phase 6d's two widths
+MAMBA_TIMING_EPOCHS = 4
+WIDE_TIMING_EPOCHS = 5
 LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
 LOSS_RTOL = 2.0 ** -7           # two bf16 ulps
 UPDATE_RTOL = 0.05
@@ -825,9 +868,9 @@ def main_runs(torch):
          distributed.draw_sync_orders(gen, dist.workers, dist.n, ROUNDS),
          ROUNDS + 1, (ROUNDS + 1) * dist.n, dist.workers * dist.n, True),
         ("centralvr millionsong (46371x90)",
-         dict(algo="centralvr", rounds=ROUNDS), ms,
-         centralvr.draw_orders(gen, ms.n, ROUNDS), ROUNDS + 1,
-         (ROUNDS + 1) * ms.n, ms.n, True),
+         dict(algo="centralvr", rounds=MS_ROUNDS), ms,
+         centralvr.draw_orders(gen, ms.n, MS_ROUNDS), MS_ROUNDS + 1,
+         (MS_ROUNDS + 1) * ms.n, ms.n, True),
     ]
 
 
@@ -1506,7 +1549,8 @@ def phase_lm(torch, kernels):
     log(f"[lm] mamba2-130m, full width and depth: "
         f"{model.ParamLayout(mfull).n} params")
     runs += [lm_pair(torch, mfull, mtcfg, 2, kernels,
-                     "mamba2-130m L=24 W=2 S=2048"),
+                     "mamba2-130m L=24 W=2 S=2048",
+                     timing_epochs=MAMBA_TIMING_EPOCHS),
              lm_pair(torch, mred, mtred, 2, kernels,
                      "mamba2-130m reduced W=2 S=256")]
     return runs
@@ -1567,7 +1611,8 @@ def phase_archs(torch, kernels):
     for cfg, tcfg, label in archs_configs():
         log(f"[lm] {label}: {model.ParamLayout(cfg).n} params, layer kinds "
             f"{list(cfg.layer_kinds())}")
-        runs.append(lm_pair(torch, cfg, tcfg, 1, kernels, label))
+        runs.append(lm_pair(torch, cfg, tcfg, 1, kernels, label,
+                            timing_epochs=WIDE_TIMING_EPOCHS))
     tred = archs_reduced_tcfg()
     for name in NEW_ARCHS:
         runs.append(lm_pair(torch, get_arch(name).reduced(), tred, 2,
@@ -1584,6 +1629,9 @@ def phase_archs(torch, kernels):
 SPMD_TOL = 1e-9                 # against the vmap fused run, relative
 SPMD_PS_SVRG_N = 125            # PS-SVRG's n per worker in phase 4c
 SPMD_PROBE_CALLS = 100          # all-reduces timed after the convex runs
+# Mamba2-130M's layers in phase 4c's LM run: cut from its 24 (whose run
+# over 2 ranks and its vmap twin took ~55 s) to keep the script in its time
+SPMD_LM_LAYERS = 8
 LM_TOL = dict(rtol=3e-5, atol=1e-6)   # the CPU tests' LM tolerance
 
 
@@ -1812,8 +1860,16 @@ def spmd_check(torch, runs, vmap, ranks):
     return recs
 
 
+def spmd_lm_configs():
+    """Phase 4c's LM: Mamba2-130M's full width at SPMD_LM_LAYERS of its 24
+    layers, with phase 6's training config."""
+    import dataclasses
+    (cfg, tcfg), _ = mamba_configs()
+    return dataclasses.replace(cfg, num_layers=SPMD_LM_LAYERS), tcfg
+
+
 def spmd_rank_lm(group, sample):
-    """In a rank: Mamba2-130M at full width and depth, its worker of W = 2
+    """In a rank: phase 4c's LM (``spmd_lm_configs``), its worker of W = 2
     through ``make_epoch_runner(backend="spmd", fused=True)``, 2 epochs
     from the seeded state (``place_train_state``), counts set to 0 just
     before."""
@@ -1823,7 +1879,7 @@ def spmd_rank_lm(group, sample):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    (cfg, tcfg), _ = mamba_configs()
+    cfg, tcfg = spmd_lm_configs()
     run, meta = tstep.make_epoch_runner(cfg, tcfg, 2, backend="spmd",
                                         fused=True, group=group)
     state = tstep.place_train_state(
@@ -1852,16 +1908,17 @@ def spmd_rank_lm(group, sample):
 
 
 def spmd_lm(torch, mesh):
-    """Mamba2-130M W = 2 over 2 ranks sharing the card against the vmap
-    W = 2 run from the same seed (its 2 epochs run here first, then
-    freed): losses and the sampled params within LM_TOL, bit-identical
-    across ranks, launches per step as a W = 1 step's."""
+    """Phase 4c's LM (``spmd_lm_configs``) at W = 2 over 2 ranks sharing
+    the card against the vmap W = 2 run from the same seed (its 2 epochs
+    run here first, then freed): losses and the sampled params within
+    LM_TOL, bit-identical across ranks, launches per step as a W = 1
+    step's."""
     import gc
 
     from repro_torch.models import model
     from repro_torch.train import step as tstep
 
-    (cfg, tcfg), _ = mamba_configs()
+    cfg, tcfg = spmd_lm_configs()
     n = model.ParamLayout(cfg).n
     sample = torch.randint(0, n, (min(LM_SAMPLES, n),),
                            generator=torch.Generator().manual_seed(0))
@@ -1881,7 +1938,7 @@ def spmd_lm(torch, mesh):
     gc.collect()
     torch.cuda.empty_cache()
     ranks = mesh.spawn_workers(2, spmd_rank_lm, sample.numpy())
-    label = "mamba2-130m L=24 W=2 S=2048"
+    label = f"mamba2-130m L={SPMD_LM_LAYERS} W=2 S=2048"
     steps, A = ranks[0]["steps"], ranks[0]["accum"]
     want = {k: v * steps for k, v in expected_launches(cfg, A, 1).items()}
     for r, rec in enumerate(ranks):
@@ -2670,6 +2727,473 @@ def phase_fleet(torch, kernels):
                 lm=lm_rec, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: serving
+# ---------------------------------------------------------------------------
+
+# the paged engine's geometry and trace at Qwen2-7B's full width and depth
+SERVE_GEO = dict(width=8, block_size=16, max_seq_len=640,
+                 chunk_buckets=(16, 64, 128))
+SERVE_REQUESTS = 16
+SERVE_TRACE = dict(pattern="poisson", gap=4, prompt_lens=(128, 256, 512),
+                   max_new=64, vary_new=True, seed=0)
+SERVE_BURST = dict(pattern="burst", prompt_len=128, max_new=16, seed=1)
+SERVE_BURST_N = 4
+SERVE_ALONE = 3                 # requests served alone: the fewest new tokens
+SERVE_TOL = 2.0 ** -7           # engine against legacy, of the largest logit
+K2_BF16_TOL = 1e-2              # K2's bf16 tolerance (phase 3)
+SERVE_TIMED_STEPS = 20          # decode steps timed with CUDA events
+SERVE_TIMED_CHUNKS = 5          # 128-token prefill chunks timed
+# a decode step's lane lengths: every lane alive at its own position
+SERVE_LENS = (130, 260, 515, 70, 300, 600, 17, 400)
+
+
+def serve_ids(rep):
+    return {r.rid: list(r.tokens) for r in rep.results}
+
+
+def serve_report_line(label, rep):
+    s = rep.summary()
+    log(f"[serve] {label}: {s['requests']} requests, {s['steps']} decode "
+        f"steps; prefill {s['prefill_tokens']} tokens at "
+        f"{s['prefill_tok_s']!r} tok/s; decode {s['decode_tokens']} tokens "
+        f"at {s['decode_tok_s']!r} tok/s; latency p50 "
+        f"{s['latency_p50_s']!r} s, p95 {s['latency_p95_s']!r} s; wall "
+        f"{s['wall_s']!r} s; blocks reused {s['blocks_reused']}; first "
+        f"calls {rep.compile_s}")
+    return s
+
+
+def serve_rel_err(torch, got, want):
+    """Largest difference over the largest magnitude of ``want``."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def serve_decode_inputs(torch, geo, vocab):
+    """A decode step's inputs with every lane alive at its own length
+    (``SERVE_LENS``), each lane on blocks of its own."""
+    import numpy as np
+    D, bps = geo.width, geo.blocks_per_seq
+    tokens = np.arange(1, D + 1, dtype=np.int64) * 997 % vocab
+    lens = np.array(SERVE_LENS[:D], np.int64)
+    alive = np.ones(D, np.int64)
+    tables = 1 + np.arange(D * bps, dtype=np.int64).reshape(D, bps)
+    return tokens, lens, alive, tables
+
+
+def serve_bytes(torch, eng, lens):
+    """The decode step's byte bound: every weight it reads (the blocks in
+    the compute dtype, the final norm and the head as they are; the
+    embedding's rows are negligible) and the paged context it gathers,
+    read once each (``lens`` does not change the gather: the tables map
+    every lane's whole context)."""
+    from repro_torch.models import model
+    sizes = []
+    model.tree_map(lambda t: sizes.append(t.numel() * t.element_size()),
+                   [eng.params["layers"], eng.params["final_norm"],
+                    eng.params["head"]])
+    kv = sum(2 * eng.geo.width * eng.geo.context * t["k"].shape[2]
+             * t["k"].shape[3] * t["k"].element_size() for t in eng.cache)
+    return sum(sizes), kv
+
+
+def serve_burst(torch, eng, cfg, gate):
+    """The burst on the engine with its prefill and decode logits
+    recorded, then on ``run_host_loop`` at width 4. With ``gate`` (the
+    float32 run) the legacy program also runs teacher-forced on the
+    engine's ids (``train.step.make_serve_step``), and the gates: the
+    prefill's first-token logits and the teacher-forced decode logits
+    within SERVE_TOL of their largest magnitude, and the legacy ids equal
+    to the engine's as far as the legacy top-2 margin exceeds that bound.
+    Without (the bfloat16 run, where the two programs' roundings part
+    them: 2.0% of the largest logit on an H100) the two runs' ids are
+    compared and printed."""
+    import numpy as np
+
+    from repro_torch.models import model
+    from repro_torch.serve import prompt_tokens, run_host_loop, synthetic_trace
+    from repro_torch.train import step as tstep
+
+    burst = synthetic_trace(SERVE_BURST_N, **SERVE_BURST)
+    logs = {"prefill": [], "decode": []}
+    prefill, decode = eng._prefill, eng._decode
+
+    def rec_prefill(*a):
+        out = prefill(*a)
+        logs["prefill"].append(out[0].clone())
+        return out
+
+    def rec_decode(*a):
+        out = decode(*a)
+        logs["decode"].append(out[0][:SERVE_BURST_N].clone())
+        return out
+    eng._prefill, eng._decode = rec_prefill, rec_decode
+    try:
+        erep = eng.run(burst)
+    finally:
+        eng._prefill, eng._decode = prefill, decode
+    tag = f"qwen2-7b {cfg.dtype} burst"
+    serve_report_line(f"{tag}, engine", erep)
+    lrep = run_host_loop(cfg, burst, params=eng.params, width=SERVE_BURST_N,
+                         device="cuda")
+    serve_report_line(f"{tag}, run_host_loop width 4", lrep)
+    eids, lids = serve_ids(erep), serve_ids(lrep)
+    same = sum(eids[r.rid] == lids[r.rid] for r in burst)
+    out = dict(dtype=cfg.dtype, gated=gate, ids_equal=same,
+               engine=erep.summary(), legacy=lrep.summary(),
+               legacy_compile_s=lrep.compile_s)
+    if not gate:
+        log(f"[serve] {tag} engine against legacy: ids equal in full for "
+            f"{same} of {len(burst)} requests (not gated)")
+        return out
+
+    S, G = SERVE_BURST["prompt_len"], SERVE_BURST["max_new"]
+    serve_step, _ = tstep.make_serve_step(cfg)
+    prompts = torch.from_numpy(np.stack(
+        [prompt_tokens(r, cfg.vocab_size) for r in burst]).astype(
+        np.int64)).cuda()
+    forced = torch.tensor([eids[r.rid] for r in burst], device="cuda")
+    cache = model.init_cache(cfg, SERVE_BURST_N, S + G, device="cuda")
+    for t in range(S):
+        lg, cache = serve_step(eng.params, prompts[:, t:t + 1], cache, t)
+    teacher = [lg]
+    for g in range(1, G):
+        lg, cache = serve_step(eng.params, forced[:, g - 1:g], cache,
+                               S + g - 1)
+        teacher.append(lg)
+    del cache
+    first_err = serve_rel_err(torch, torch.stack(logs["prefill"]),
+                              teacher[0])
+    step_errs = [serve_rel_err(torch, e, t)
+                 for e, t in zip(logs["decode"], teacher[1:])]
+    if len(logs["decode"]) != G - 1:
+        raise AssertionError(f"[serve] burst: {len(logs['decode'])} decode "
+                             f"steps recorded, expected {G - 1}")
+    # how far the ids must agree: up to the first position where the
+    # legacy top-2 margin is within the bound
+    far = []
+    for i, r in enumerate(burst):
+        n = 0
+        for g in range(G):
+            row = teacher[g][i].float()
+            top2 = torch.topk(row, 2).values
+            if not float(top2[0] - top2[1]) > SERVE_TOL * float(
+                    row.abs().max()):
+                break
+            n += 1
+        far.append(n)
+        if eids[r.rid][:n] != lids[r.rid][:n]:
+            raise AssertionError(
+                f"[serve] burst rid {r.rid}: engine ids {eids[r.rid]} and "
+                f"legacy ids {lids[r.rid]} differ within the first {n}, "
+                "whose legacy top-2 margins exceed the bound")
+    log(f"[serve] {tag} engine against legacy: first-token logits "
+        f"{first_err!r}, teacher-forced decode logits up to "
+        f"{max(step_errs)!r} of the largest magnitude (bound {SERVE_TOL!r});"
+        f" ids compared (legacy top-2 margin above the bound) for the first "
+        f"{far} of {G} tokens, equal there; equal in full for "
+        f"{sum(eids[r.rid] == lids[r.rid] for r in burst)} of "
+        f"{len(burst)} requests" + ("" if gate else " (not gated)"))
+    if gate and not (first_err <= SERVE_TOL
+                     and max(step_errs) <= SERVE_TOL):
+        raise AssertionError(f"[serve] burst: engine and legacy logits "
+                             f"differ by {first_err}, {max(step_errs)}")
+    return dict(out, first_logits_err=first_err,
+                decode_logits_err=max(step_errs), ids_compared=far)
+
+
+def serve_time(torch, eng, kernels, profile):
+    """The decode step at SERVE_LENS and a 128-token prefill chunk, timed
+    with CUDA events; one decode step under ``torch.profiler`` for its
+    device ops (launches) and busy time; the step under ``kernel_ctx``
+    (K2 for every norm) against the plain one, its launches counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.models import kernel_ctx
+
+    geo = eng.geo
+    ins = serve_decode_inputs(torch, geo, eng.cfg.vocab_size)
+    from repro_torch.serve import runtime
+    staged = runtime.stage(eng.device, *ins)
+
+    def step():
+        return eng._decode(eng.params, eng.cache, *staged)[0]
+
+    plain = step()
+    reset_counts(kernels)
+    with kernel_ctx.scope():
+        fused = step()
+    torch.cuda.synchronize()
+    k2 = read_counts(kernels)
+    want = dict.fromkeys(kernels, 0)
+    want["rmsnorm"] = 2 * eng.cfg.num_layers + 1
+    k2_err = serve_rel_err(torch, fused, plain)
+    log(f"[serve] decode step under kernel_ctx (K2 for every norm): "
+        f"launches {k2} (expected {want}); logits against the plain step "
+        f"{k2_err!r} of the largest magnitude (K2's bf16 tolerance "
+        f"{K2_BF16_TOL!r}); finite {bool(torch.isfinite(fused).all())}")
+    if k2 != want:
+        raise AssertionError(f"[serve] kernel_ctx decode launched {k2}")
+    if not k2_err <= K2_BF16_TOL or not bool(torch.isfinite(plain).all()):
+        raise AssertionError(f"[serve] kernel_ctx decode differs by {k2_err}")
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SERVE_TIMED_STEPS):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / SERVE_TIMED_STEPS
+    decode_ms = start.elapsed_time(end) / SERVE_TIMED_STEPS
+
+    row = staged[3][0]
+    chunk = torch.arange(128, device=eng.device)
+
+    def fill():
+        return eng._prefill(eng.params, eng.cache, chunk, 0, 128, 0, row)[0]
+    fill()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(SERVE_TIMED_CHUNKS):
+        fill()
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end) / SERVE_TIMED_CHUNKS
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    launches = sum(r[1] for r in rows)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    weights, kv = serve_bytes(torch, eng, ins[1])
+    bound_ms = (weights + kv) / PEAK_BYTES_S * 1e3
+    log(f"[serve] qwen2-7b decode step (width {geo.width}, lanes at "
+        f"{list(SERVE_LENS)}): {decode_ms!r} ms (CUDA events over "
+        f"{SERVE_TIMED_STEPS} steps; host wall {wall_ms!r} ms); {launches} "
+        f"device ops a step (torch.profiler); byte bound {bound_ms!r} ms "
+        f"(weights {weights} + KV {kv} bytes at {PEAK_BYTES_S:.3g} B/s): "
+        f"{bound_ms / decode_ms!r} of it reached")
+    log(f"[serve] qwen2-7b prefill chunk of 128 tokens: {prefill_ms!r} ms "
+        f"(CUDA events over {SERVE_TIMED_CHUNKS}); "
+        f"{128e3 / prefill_ms!r} tokens/s")
+    out = dict(decode_ms=decode_ms, decode_wall_ms=wall_ms,
+               prefill_chunk_ms=prefill_ms, launches_per_step=launches,
+               bound_ms=bound_ms, bound_share=bound_ms / decode_ms,
+               weight_bytes=weights, kv_read_bytes=kv,
+               kernel_ctx_max_rel_err=k2_err, k2_launches=k2["rmsnorm"])
+    if profile:
+        out["busy_ms"] = busy_ms
+        out["busy_share"] = busy_ms / decode_ms
+        log(f"[serve] decode step device busy {busy_ms!r} ms of "
+            f"{decode_ms!r} ms: busy share {busy_ms / decode_ms!r}")
+        for t, count, key in rows[:12]:
+            log(f"[profile]   {t / 1e3:9.3f} ms  {count:5d} x  {key[:90]}")
+    return out
+
+
+def serve_small_engine(torch, name):
+    """``name``.reduced() on the paged engine and on the dense oracle over
+    one trace: ids equal, every block free at the end."""
+    from repro_torch.config import get_arch
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    cfg = get_arch(name).reduced()
+    trace = synthetic_trace(6, pattern="uniform", prompt_len=24, max_new=8,
+                            gap=2, vary_new=True, seed=2)
+    kw = dict(width=4, block_size=8, max_seq_len=64, chunk_buckets=(8, 16),
+              device="cuda", seed=0)
+    ids = {}
+    for mode in ("paged", "dense"):
+        eng = ServeEngine(cfg, kv_cache=mode, **kw)
+        eng.warmup()
+        rep = eng.run(trace)
+        serve_report_line(f"{name} reduced, {mode}", rep)
+        ids[mode] = serve_ids(rep)
+        if eng.allocator.in_use:
+            raise AssertionError(f"[serve] {name}: {eng.allocator.in_use} "
+                                 "blocks still in use")
+    if ids["paged"] != ids["dense"]:
+        raise AssertionError(f"[serve] {name}: paged ids {ids['paged']} "
+                             f"!= dense {ids['dense']}")
+    return dict(label=f"{name} reduced engine", steps=rep.steps,
+                decode_tok_s=rep.decode_tok_s)
+
+
+def serve_legacy_arch(torch, cfg, label, prompt_len, max_new):
+    """``cfg`` through the legacy loop: a burst of 4 requests at width 4
+    (ids in the vocabulary); then, at float32 compute on the same params,
+    the per-token decode over the prompt against the full forward's last
+    logits (``make_serve_step``'s pair), within SERVE_TOL of their
+    largest magnitude (the reference's decode-against-forward oracle runs
+    in float32 too)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import model
+    from repro_torch.serve import prompt_tokens, run_host_loop, synthetic_trace
+    from repro_torch.train import step as tstep
+
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+    trace = synthetic_trace(4, pattern="burst", prompt_len=prompt_len,
+                            max_new=max_new, seed=3)
+    rep = run_host_loop(cfg, trace, params=params, width=4, device="cuda")
+    serve_report_line(f"{label}, run_host_loop width 4", rep)
+    ids = [t for r in rep.results for t in r.tokens]
+    if not (len(ids) == 4 * max_new and 0 <= min(ids)
+            and max(ids) < cfg.vocab_size):
+        raise AssertionError(f"[serve] {label}: ids {ids}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    serve_step, serve_prefill = tstep.make_serve_step(cfg32)
+    toks = torch.from_numpy(np.stack([prompt_tokens(r, cfg.vocab_size)
+                                      for r in trace]).astype(np.int64)).cuda()
+    full = serve_prefill(params, toks)
+    cache = model.init_cache(cfg32, 4, prompt_len, device="cuda")
+    for t in range(prompt_len):
+        lg, cache = serve_step(params, toks[:, t:t + 1], cache, t)
+    err = serve_rel_err(torch, lg, full)
+    log(f"[serve] {label}: float32 per-token decode over the {prompt_len}-"
+        f"token prompt against the forward's last logits: {err!r} of the "
+        f"largest magnitude (bound {SERVE_TOL!r})")
+    if not err <= SERVE_TOL or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"[serve] {label}: decode and forward differ "
+                             f"by {err}")
+    return dict(label=label, steps=rep.steps, decode_tok_s=rep.decode_tok_s,
+                prefill_tok_s=rep.prefill_tok_s, decode_forward_err=err)
+
+
+def phase_serve(torch, kernels, profile=False):
+    """Phase 7: serving (``repro_torch.serve``). Qwen2-7B at its full width
+    and depth (28 layers, float32 params cast once to bfloat16) on the
+    paged engine over SERVE_TRACE, the same trace on the dense oracle
+    sharing the cast params (ids bit for bit), SERVE_ALONE of its
+    requests served alone (ids bit for bit), the burst on the engine and
+    the legacy loop (``serve_burst``), the decode step timed and under
+    ``kernel_ctx`` (``serve_time``), every pool block free at the end;
+    then qwen3-moe-30b-a3b.reduced() on the engine, Mamba2-130M at full
+    width and depth and recurrentgemma-2b.reduced() through the legacy
+    loop. Returns the phase's record; its K2 launches under
+    ``launches``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen2-7b")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+    n_params = model.param_count_actual(params)
+    eng = ServeEngine(cfg, params, kv_cache="paged", device="cuda",
+                      **SERVE_GEO)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pool = sum(t.numel() * t.element_size() for layer in eng.cache
+               for t in layer.values())
+    log(f"[serve] qwen2-7b: {n_params} params ({cfg.num_layers} layers), "
+        f"float32 drawn and cast once to {cfg.dtype} in {init_s:.2f} s; KV "
+        f"pool {eng.geo.num_blocks} blocks of {eng.geo.block_size}, "
+        f"{pool} bytes; geometry {eng.geo}")
+    compile_s = eng.warmup()
+    trace = synthetic_trace(SERVE_REQUESTS, **SERVE_TRACE)
+    reset_counts(kernels)
+    rep = eng.run(trace)
+    counts = read_counts(kernels)
+    main = serve_report_line("qwen2-7b paged trace", rep)
+    if any(counts.values()):
+        raise AssertionError(f"[serve] the plain engine launched {counts}")
+    if eng.allocator.in_use:
+        raise AssertionError(f"[serve] {eng.allocator.in_use} blocks still "
+                             "in use after the trace")
+    if not rep.blocks_reused:
+        raise AssertionError("[serve] the trace reused no block")
+    ids = serve_ids(rep)
+
+    dense = ServeEngine(cfg, eng.params, kv_cache="dense", device="cuda",
+                        **SERVE_GEO)
+    if dense.params["layers"][0]["mixer"]["wq"] is not \
+            eng.params["layers"][0]["mixer"]["wq"]:
+        raise AssertionError("[serve] the dense engine copied the params")
+    dense.warmup()
+    drep = dense.run(trace)
+    serve_report_line("qwen2-7b dense trace", drep)
+    del dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    if serve_ids(drep) != ids:
+        raise AssertionError("[serve] paged and dense ids differ")
+    alone_reqs = sorted(trace, key=lambda r: (r.max_new, r.rid))[:SERVE_ALONE]
+    for r in alone_reqs:
+        alone = eng.run([dataclasses.replace(r, arrival=0)])
+        if serve_ids(alone)[r.rid] != ids[r.rid]:
+            raise AssertionError(f"[serve] rid {r.rid} alone: "
+                                 f"{serve_ids(alone)[r.rid]} != {ids[r.rid]}")
+    log(f"[serve] paged ids equal the dense oracle's for all "
+        f"{len(trace)} requests, and requests "
+        f"{[r.rid for r in alone_reqs]} served alone equal their ids in the "
+        "batch, bit for bit")
+    burst = [serve_burst(torch, eng, cfg, gate=False)]
+    timing = serve_time(torch, eng, kernels, profile)
+    free = eng.allocator.available() == eng.geo.num_blocks - 1
+    if eng.allocator.in_use or not free:
+        raise AssertionError("[serve] pool blocks still held at the end")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] qwen2-7b: peak memory {peak!r} bytes; every pool block "
+        f"free at the end; first-call seconds {compile_s}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # engine against legacy, gated, at float32 compute: the same params
+    # drawn again, no cast (the engine keeps the float32 masters)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = model.init_params(cfg32,
+                               torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+    eng = ServeEngine(cfg32, params, kv_cache="paged", device="cuda",
+                      **SERVE_GEO)
+    del params
+    burst.append(serve_burst(torch, eng, cfg32, gate=True))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    others = [serve_small_engine(torch, "qwen3-moe-30b-a3b")]
+    others.append(serve_legacy_arch(torch, get_arch("mamba2-130m"),
+                                    "mamba2-130m full width and depth", 64,
+                                    16))
+    others.append(serve_legacy_arch(torch,
+                                    get_arch("recurrentgemma-2b").reduced(),
+                                    "recurrentgemma-2b reduced", 40, 8))
+    seconds = time.perf_counter() - t_phase
+    log(f"[path] phase 7 (serve) in {seconds:.1f} s")
+    return dict(qwen2_7b=dict(params=n_params, layers=cfg.num_layers,
+                              init_s=init_s, pool_bytes=pool,
+                              peak_bytes=peak, compile_s=compile_s,
+                              trace=main, dense=drep.summary(), **timing,
+                              burst=burst),
+                others=others, seconds=seconds,
+                launches={"rmsnorm": timing["k2_launches"]})
+
+
 def graph_ms(torch, fn, calls=200, replays=20):
     """Device time per call of ``fn``: ``calls`` back-to-back calls
     captured in one CUDA graph, replayed, timed with CUDA events."""
@@ -3277,6 +3801,15 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--serve" in sys.argv[1:]:
+        serve = phase_serve(torch, kernels, "--profile" in sys.argv[1:])
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"serve": serve}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--sparse" in sys.argv[1:]:
         sparse = phase_sparse(torch, kernels)
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -3312,6 +3845,7 @@ def main():
     lm += phase_archs(torch, kernels)
     telemetry = phase_obs(torch, kernels)
     fleet = phase_fleet(torch, kernels)
+    serve = phase_serve(torch, kernels, "--profile" in sys.argv[1:])
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                (2, model.ParamLayout(mamba_full).n),
@@ -3347,11 +3881,14 @@ def main():
         total[name] += n
     for name, n in fleet["launches"].items():
         total[name] += n
+    for name, n in serve["launches"].items():
+        total[name] += n
     mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
     lm_paths = [{k: r[k] for k in LM_PATH_KEYS} for r in lm]
     head = epoch_times[0]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(f"[card] {smi}")
+    log(json.dumps({"serve": serve}))
     log(json.dumps({"kernels": [{
         "name": "vr_update", "route": "cuda",
         "source": "src/repro_torch/kernels/vr_update/csrc/vr_update.cu",
@@ -3408,7 +3945,9 @@ def main():
                                     "library_ms", "shape", "dtype",
                                     "eager_ms")},
         "other_shapes": [dict(rms_mamba_time,
-                              max_abs_err=rms_err[(8192, 768)])]}, {
+                              max_abs_err=rms_err[(8192, 768)])],
+        "serve_kernel_ctx": {k: serve["qwen2_7b"][k] for k in (
+            "k2_launches", "kernel_ctx_max_rel_err")}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",

@@ -8,8 +8,10 @@ array converts without this module importing jax): a ``Problem`` /
 
 The reference's LM parameters (a tree of arrays, its layers stacked
 along a leading axis for its scan) become the port's tree, one entry per
-layer (:func:`lm_params_from_jax`), and its token blocks become int64
-tensors (:func:`tokens_from_jax`).
+layer (:func:`lm_params_from_jax`), its decode and serve caches the
+port's per-layer lists (:func:`decode_cache_from_jax`,
+:func:`serve_cache_from_jax`), and its token blocks become int64 tensors
+(:func:`tokens_from_jax`).
 
 The reference draws its visit orders and sample indices inside its
 drivers with ``jax.random``; one function per driver here
@@ -234,28 +236,80 @@ def lm_params_from_jax(params_np, cfg):
     is layer s*len(pattern) + j), followed by the ``layers/tail``
     entries; every leaf of a block (MoE and RG-LRU ones too) and the
     frontend stub's ``frontend_proj`` are carried as they are."""
-    def tensor(a):
-        a = np.array(a)
-        if a.dtype.name == "bfloat16":   # through float32, which holds it
-            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        return torch.from_numpy(a)
-
     stack, tail = params_np["layers"]["stack"], params_np["layers"]["tail"]
     n_super = (len(np.asarray(stack[0]["norm1"]["scale"]))
                if stack else 0)
-    layers = [_tree_map(lambda a: tensor(np.asarray(a)[s]), stack[j])
+    layers = [_tree_map(lambda a: _tensor_of(np.asarray(a)[s]), stack[j])
               for s in range(n_super) for j in range(len(stack))]
-    layers += [_tree_map(tensor, t) for t in tail]
+    layers += [_tree_map(_tensor_of, t) for t in tail]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{cfg.name}: the reference params hold "
                          f"{len(layers)} layers, the config {cfg.num_layers}")
-    out = {"embed": _tree_map(tensor, params_np["embed"]),
+    out = {"embed": _tree_map(_tensor_of, params_np["embed"]),
            "layers": layers,
-           "final_norm": _tree_map(tensor, params_np["final_norm"]),
-           "head": _tree_map(tensor, params_np["head"])}
+           "final_norm": _tree_map(_tensor_of, params_np["final_norm"]),
+           "head": _tree_map(_tensor_of, params_np["head"])}
     if "frontend_proj" in params_np:
-        out["frontend_proj"] = tensor(params_np["frontend_proj"])
+        out["frontend_proj"] = _tensor_of(params_np["frontend_proj"])
     return out
+
+
+def _tensor_of(a):
+    """A reference array as a CPU tensor; bfloat16 through float32, which
+    holds it exactly."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _unstack_layers(cache_np, cfg, one):
+    """The reference's ``{"stack": [per pattern position, leading
+    super-block axis], "tail": [...]}`` as one entry per layer, in layer
+    order; ``one(entry, kind, s)`` converts super-block ``s`` of a stacked
+    entry (``s`` None: a tail entry)."""
+    stack, tail = cache_np["stack"], cache_np["tail"]
+    kinds = cfg.layer_kinds()
+
+    def lead(entry):
+        return np.shape(entry["k"] if isinstance(entry, dict) else entry[0])[0]
+    n_super = lead(stack[0]) if stack else 0
+    out = [one(stack[j], kinds[s * len(stack) + j], s)
+           for s in range(n_super) for j in range(len(stack))]
+    out += [one(t, kinds[len(out) + i], None) for i, t in enumerate(tail)]
+    if len(out) != cfg.num_layers:
+        raise ValueError(f"{cfg.name}: the reference cache holds {len(out)} "
+                         f"layers, the config {cfg.num_layers}")
+    return out
+
+
+def decode_cache_from_jax(cache_np, cfg):
+    """The reference's lockstep decode cache (``repro.models.model.
+    init_cache``'s tree: attention dicts of k / v, ``SSMCache`` and
+    ``RecCache`` tuples of conv / h) as the port's list, one entry per
+    layer, of CPU tensors: dicts for attention layers, the port's
+    ``SSMCache`` / ``RecCache`` for ssm / rec layers."""
+    from repro_torch.models import rglru, ssm
+
+    def one(entry, kind, s):
+        def pick(a):
+            return _tensor_of(np.asarray(a) if s is None else np.asarray(a)[s])
+        if kind in ("attn", "local"):
+            return {k: pick(entry[k]) for k in ("k", "v")}
+        cls = ssm.SSMCache if kind == "ssm" else rglru.RecCache
+        return cls(conv=pick(entry[0]), h=pick(entry[1]))
+    return _unstack_layers(cache_np, cfg, one)
+
+
+def serve_cache_from_jax(cache_np, cfg):
+    """The reference's serve cache (``repro.serve.runtime.init_cache``'s
+    tree of k / v pools, lane buffers or rings) as the port's list, one
+    ``{"k", "v"}`` dict of CPU tensors per layer."""
+    def one(entry, kind, s):
+        return {k: _tensor_of(np.asarray(entry[k]) if s is None
+                              else np.asarray(entry[k])[s])
+                for k in ("k", "v")}
+    return _unstack_layers(cache_np, cfg, one)
 
 
 def tokens_from_jax(tokens) -> torch.Tensor:

@@ -1,13 +1,13 @@
-"""Top-level model API of the port, train path: init, forward and the
-next-token loss (+ the MoE aux loss) — the port of
+"""Top-level model API of the port: init, forward, the next-token loss
+(+ the MoE aux loss) and the lockstep decode — the port of
 ``repro/models/model.py`` for every arch of the zoo, the VLM/audio
-frontend stub included (decode and serving are still to port, see
-ROADMAP.md).
+frontend stub included.
 
 Batches are dicts: ``{"tokens": (B, S) int, ["labels": (B, S)],
 ["frontend_embeds": (B, S_f, d)]}``. For a frontend arch the sequence is
 S_f + S: the projected embeddings, then the tokens; the loss leaves the
-embedding positions out.
+embedding positions out. Decode takes a (B, 1) token block, a cache from
+:func:`init_cache` and the position, an int.
 
 Params are a nested dict ``{"embed": {"tok"}, "layers": [per-layer
 dict, ...], "final_norm": {"scale"}, "head": {"w"}[, "frontend_proj"]}``
@@ -194,3 +194,32 @@ def loss_fn(p, cfg: ModelConfig, batch, *, remat: str = "block",
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
     return nll.mean() + aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device):
+    """The lockstep decode's caches in the compute dtype, one per layer."""
+    return transformer.init_stack_cache(cfg, batch, max_len,
+                                        getattr(torch, cfg.dtype),
+                                        device=device)
+
+
+def decode_step(p, cfg: ModelConfig, token, cache, pos: int):
+    """token: (B, 1) -> (logits (B, vocab) float32, cache). The cache's
+    tensors are written in place, where the reference returns new ones."""
+    compute = getattr(torch, cfg.dtype)
+    x = layers.embed_tokens(p["embed"], token).to(compute)
+    x, cache = transformer.apply_stack_decode(p["layers"], cache, cfg, x, pos)
+    x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
+    logits = layers.lm_logits(p["head"], p["embed"], x, cfg.tie_embeddings)
+    return logits[:, 0].to(torch.float32), cache
+
+
+def param_count_actual(params) -> int:
+    """Elements in a params tree."""
+    n = 0
+
+    def add(t):
+        nonlocal n
+        n += t.numel()
+    tree_map(add, params)
+    return n

@@ -1,6 +1,7 @@
-"""RG-LRU recurrent block (RecurrentGemma / Griffin [arXiv:2402.19427]),
-train path — the port of the train half of ``repro/models/rglru.py``
-(decode, ``rglru_step`` and ``RecCache``, is serving's, still to port).
+"""RG-LRU recurrent block (RecurrentGemma / Griffin [arXiv:2402.19427])
+— the port of ``repro/models/rglru.py``: the prefix scan for train and
+prefill, and for decode the O(1) step ``rglru_step`` over a ``RecCache``
+(the last CONV_K - 1 conv inputs and the float32 state).
 
     r_t = sigmoid(W_a x_t)          recurrence gate (block-diagonal, per head)
     i_t = sigmoid(W_x x_t)          input gate
@@ -21,6 +22,7 @@ projected back.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -98,3 +100,37 @@ def apply_rec_train(p, cfg: ModelConfig, u):
             for i in range(CONV_K)) + p["conv_b"]
     h, _ = rglru_scan(p, x)
     return (h.to(u.dtype) * y) @ p["out"]
+
+
+def rglru_step(p, x, h_prev):
+    """x: (B, 1, dr); the O(1) decode step: (h (B, 1, dr), h (B, dr))."""
+    log_a, b = _gates(p, x)
+    h = torch.exp(log_a[:, 0]) * h_prev + b[:, 0]
+    return h[:, None, :], h
+
+
+class RecCache(NamedTuple):
+    conv: torch.Tensor  # (B, CONV_K-1, dr)
+    h: torch.Tensor     # (B, dr) float32
+
+
+def init_rec_cache(cfg: ModelConfig, batch: int, dtype, *,
+                   device=None) -> RecCache:
+    dr = cfg.d_model
+    return RecCache(
+        conv=torch.zeros((batch, CONV_K - 1, dr), dtype=dtype, device=device),
+        h=torch.zeros((batch, dr), dtype=torch.float32, device=device))
+
+
+def apply_rec_decode(p, cfg: ModelConfig, u, cache: RecCache):
+    """u: (B, 1, d). Returns (out, cache): the cache's tensors are written
+    in place."""
+    x_new = u @ p["wx_in"]                                 # (B, 1, dr)
+    y = F.gelu(u @ p["wy_in"], approximate="tanh")
+    conv_in = torch.cat([cache.conv, x_new], 1)
+    x = (sum(conv_in[:, i, :] * p["conv_w"][i] for i in range(CONV_K))
+         + p["conv_b"])[:, None, :]
+    h_seq, h = rglru_step(p, x, cache.h)
+    cache.conv.copy_(conv_in[:, 1:])
+    cache.h.copy_(h)
+    return (h_seq.to(u.dtype) * y) @ p["out"], cache

@@ -1,6 +1,7 @@
-"""Mamba2 / SSD (state-space duality) block, train path — the port of
-``repro/models/ssm.py`` (decode and its cache wait for serving, ROADMAP.md
-queue 1, item 14).
+"""Mamba2 / SSD (state-space duality) block — the port of
+``repro/models/ssm.py``: the chunked scan for train and prefill, and the
+O(1) recurrence for decode, h <- a h + dt B x, y = C h + D x, over an
+``SSMCache`` (the last CONV_K - 1 conv inputs and the float32 state).
 
 The chunked SSD algorithm splits the sequence into chunks of Q steps;
 within a chunk the recurrence takes its dual, attention-like quadratic
@@ -16,6 +17,8 @@ Under ``kernel_ctx`` the block's scan runs as the K4 kernel
 backward differentiates :func:`_ssd_chunked`.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -184,6 +187,24 @@ class _SSDFused(torch.autograd.Function):
         return (*grads, None)
 
 
+class SSMCache(NamedTuple):
+    conv: torch.Tensor  # (B, CONV_K-1, di + 2N) last conv inputs
+    h: torch.Tensor     # (B, H, P, N) recurrent state, float32
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, *,
+                   device=None) -> SSMCache:
+    di, H, P, N = dims(cfg)
+    return SSMCache(
+        conv=torch.zeros((batch, CONV_K - 1, di + 2 * N), dtype=dtype,
+                         device=device),
+        h=torch.zeros((batch, H, P, N), dtype=torch.float32, device=device))
+
+
+def _softplus(x):
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
 def apply_ssm_train(p, cfg: ModelConfig, u):
     """u: (B, S, d) -> (B, S, d). Full block: proj, conv, SSD, gate, norm."""
     di, H, P, N = dims(cfg)
@@ -192,8 +213,7 @@ def apply_ssm_train(p, cfg: ModelConfig, u):
     z, xs, Bc, Cc, dt = _split_proj(cfg, proj)
     xBC = _causal_conv(torch.cat([xs, Bc, Cc], -1), p["conv_w"], p["conv_b"])
     xs, Bc, Cc = torch.split(xBC, [di, N, N], dim=-1)
-    dt = dt.to(torch.float32) + p["dt_bias"]
-    dt = torch.logaddexp(dt, dt.new_zeros(()))            # softplus
+    dt = _softplus(dt.to(torch.float32) + p["dt_bias"])
     x_h = xs.reshape(B_, S, H, P)
     if kernel_ctx.active():
         y = _SSDFused.apply(x_h, dt, p["A_log"], Bc, Cc, cfg.ssm_chunk)
@@ -204,3 +224,31 @@ def apply_ssm_train(p, cfg: ModelConfig, u):
     y = y.reshape(B_, S, di).to(u.dtype)
     y = layers.rms_norm_1d(p["norm"], y * F.silu(z))
     return y @ p["out_proj"]
+
+
+def apply_ssm_decode(p, cfg: ModelConfig, u, cache: SSMCache):
+    """u: (B, 1, d); O(1) per token, float32 inside. Returns (out, cache):
+    the cache's tensors are written in place. It does not use K4."""
+    di, H, P, N = dims(cfg)
+    f32 = torch.float32
+    proj = u @ p["in_proj"]
+    z, xs, Bc, Cc, dt = _split_proj(cfg, proj)
+    conv_in = torch.cat([cache.conv, torch.cat([xs, Bc, Cc], -1)], 1)
+    out = sum(conv_in[:, i, :] * p["conv_w"][i] for i in range(CONV_K))
+    xBC = F.silu(out + p["conv_b"])[:, None, :]
+    xs, Bc, Cc = torch.split(xBC, [di, N, N], dim=-1)
+    dt = _softplus(dt.to(f32) + p["dt_bias"])             # (B, 1, H)
+
+    a = -torch.exp(p["A_log"])
+    decay = torch.exp(a * dt[:, 0])                       # (B, H)
+    x_h = xs[:, 0].reshape(-1, H, P).to(f32)
+    upd = torch.einsum("bhp,bn->bhpn", x_h * dt[:, 0, :, None],
+                       Bc[:, 0].to(f32))
+    h = cache.h * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", h, Cc[:, 0].to(f32))
+    y = y + p["D"][None, :, None] * x_h
+    y = y.reshape(-1, 1, di).to(u.dtype)
+    y = layers.rms_norm_1d(p["norm"], y * F.silu(z))
+    cache.conv.copy_(conv_in[:, 1:])
+    cache.h.copy_(h)
+    return y @ p["out_proj"], cache

@@ -7,7 +7,10 @@ no program per call, so there is no ``lower`` phase; its one compile is
 the hand-written kernels' ``nvcc`` build, so ``compile_s`` sums the
 ``kernels/build`` spans. ``warm_s`` sums the ``/execute`` spans, as in
 the reference, and ``device_s`` their ``device_ms`` (CUDA events around
-the call, recorded on the card only).
+the call, recorded on the card only). A serving record (``launch/serve.py
+--obs``) also gets a ``serving`` summary: the admits and retirements, the
+mean live decode lanes, and the ``serve_report`` event's throughput and
+latency.
 """
 from __future__ import annotations
 
@@ -43,7 +46,24 @@ def summarize(rows: List[dict]) -> dict:
     return {"run": rows[0]["run"] if rows else None,
             "n_rows": len(rows), "spans": spans, "metrics": metrics,
             "events": events, "compile_s": compile_s, "warm_s": warm_s,
-            "device_s": device_s}
+            "device_s": device_s, "serving": _serving(rows, events)}
+
+
+def _serving(rows: List[dict], events: List[dict]):
+    """The serve record's summary, or None for a record without serving:
+    admits and retirements counted, the mean of the live-lane metric, and
+    the last ``serve_report`` event's fields."""
+    reports = [e for e in events if e["name"] == "serve_report"]
+    if not reports:
+        return None
+    lanes = [r["value"] for r in rows if r["kind"] == "metric"
+             and r["name"] == "serve/decode_live_lanes"]
+    base = ("v", "run", "t", "kind", "name")
+    return {"admits": sum(e["name"] == "serve_admit" for e in events),
+            "retires": sum(e["name"] == "serve_retire" for e in events),
+            "mean_live_lanes": sum(lanes) / len(lanes) if lanes else None,
+            "report": {k: v for k, v in reports[-1].items()
+                       if k not in base}}
 
 
 def render(rows: List[dict]) -> str:
@@ -70,6 +90,24 @@ def render(rows: List[dict]) -> str:
             out.append(f"  {name}: {m['count']} rows, steps "
                        f"{m['first_step']}..{m['last_step']}, "
                        f"last value {m['last_value']:.6g}")
+
+    serving = s["serving"]
+    if serving:
+        rep = serving["report"]
+        out.append("")
+        out.append(f"serving ({rep.get('path', 'engine')}):")
+        out.append(f"  {rep.get('requests')} requests, {rep.get('steps')} "
+                   f"steps; {serving['admits']} admitted, "
+                   f"{serving['retires']} retired")
+        out.append(f"  prefill {rep.get('prefill_tokens')} tokens at "
+                   f"{rep.get('prefill_tok_s', 0.0):.1f} tok/s; decode "
+                   f"{rep.get('decode_tokens')} tokens at "
+                   f"{rep.get('decode_tok_s', 0.0):.1f} tok/s")
+        lanes = serving["mean_live_lanes"]
+        out.append(f"  latency p50 {rep.get('latency_p50_s', 0.0):.4f} s, "
+                   f"p95 {rep.get('latency_p95_s', 0.0):.4f} s"
+                   + (f"; live decode lanes {lanes:.2f} on average"
+                      if lanes is not None else ""))
 
     interesting = [e for e in s["events"]
                    if e["name"] not in ("run_start",)]

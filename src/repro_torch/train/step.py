@@ -30,6 +30,9 @@ recompute), and with SGD the VR correction and update are one K1 launch
 per step. The loss is the model's: next-token cross-entropy plus the
 MoE load-balance loss, on the text tokens alone (the reference's runner
 passes no frontend embeddings either).
+
+``make_serve_step`` is the reference's serving pair: one lockstep decode
+step and the prefill's last-position logits.
 """
 from __future__ import annotations
 
@@ -365,3 +368,27 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
         return state, losses
 
     return run_epoch, meta
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig):
+    """(serve_step, serve_prefill), without autograd: ``serve_step(params,
+    token, cache, pos)`` is ``model.decode_step``; ``serve_prefill(params,
+    tokens, fe=None)`` returns the last position's logits (B, vocab), as
+    the reference's does (all (B, S, vocab) logits are not kept)."""
+    @torch.no_grad()
+    def serve_step(params, token, cache, pos):
+        return model.decode_step(params, cfg, token, cache, pos)
+
+    @torch.no_grad()
+    def serve_prefill(params, tokens, fe=None):
+        batch = {"tokens": tokens}
+        if fe is not None:
+            batch["frontend_embeds"] = fe
+        logits, _ = model.forward(params, cfg, batch, remat="none")
+        return logits[:, -1]
+
+    return serve_step, serve_prefill

@@ -733,3 +733,58 @@ def test_fused_lm_epoch_in_float32_and_with_bf16_masters(device, dtype,
                                    rtol=2.0 ** -7, atol=0)
         diff = (out[True][1] - out[False][1]).norm()
         assert diff <= 2.0 ** -7 * out[False][1].norm()
+
+
+def test_paged_engine_matches_dense_on_the_card(device):
+    """qwen2-7b.reduced() served on the card: the paged engine's ids equal
+    the dense oracle's bit for bit over a trace that reuses blocks, and
+    every block is free at the end."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import model
+    from repro_torch.serve import ServeEngine, synthetic_trace
+    cfg = get_arch("qwen2-7b").reduced()
+    params = model.init_params(cfg, torch.Generator(device).manual_seed(0),
+                               device=device)
+    trace = synthetic_trace(6, pattern="uniform", prompt_len=12, max_new=6,
+                            gap=2, vary_new=True, seed=3)
+    kw = dict(width=3, block_size=4, max_seq_len=32, chunk_buckets=(4, 8),
+              device=device)
+    ids = {}
+    for mode in ("paged", "dense"):
+        eng = ServeEngine(cfg, params, kv_cache=mode, **kw)
+        eng.warmup()
+        rep = eng.run(trace)
+        ids[mode] = {r.rid: r.tokens for r in rep.results}
+        assert eng.cache[0]["k"].is_cuda and eng.allocator.in_use == 0
+    assert rep.blocks_reused > 0
+    assert ids["paged"] == ids["dense"]
+
+
+def test_decode_step_on_the_card_matches_the_cpu(device):
+    """``model.decode_step`` on the card against the port on the CPU, from
+    the same params and tokens, float32 compute: logits within LM_TOL
+    (rtol 3e-5, atol 1e-6 times the largest magnitude above 1) at every
+    step."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(),
+                              dtype="float32")
+    tree = model.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    tree_d = model.tree_map(lambda t: t.to(device), tree)
+    cache = model.init_cache(cfg, 2, 8, device="cpu")
+    cache_d = model.init_cache(cfg, 2, 8, device=device)
+    toks = torch.randint(0, cfg.vocab_size, (8, 2, 1),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for pos in range(8):
+            want, cache = model.decode_step(tree, cfg, toks[pos], cache, pos)
+            got, cache_d = model.decode_step(tree_d, cfg,
+                                             toks[pos].to(device), cache_d,
+                                             pos)
+            scale = max(1.0, want.abs().max().item())
+            torch.testing.assert_close(got.cpu(), want, rtol=3e-5,
+                                       atol=1e-6 * scale)
