@@ -258,7 +258,24 @@ Phases, each of which raises on failure:
      the gathered KV over 3.35 TB/s) with the share reached, first-call
      seconds per program, peak memory, KV-pool bytes and blocks reused;
      ``--profile`` adds the decode step's busy share and top operations;
-  8. the ``kernels`` line: per kernel its launches on the main paths, its
+  8. the per-step runtime and the meshes (``train/host_loop.py``,
+     ``make_train_step``, ``sharding/*``): 8a ``host_loop.run_training``
+     on ``make_test_mesh()`` (one rank, (1, 1)) at the Qwen2-7B width, 2
+     layers, seq 1024, A 2 microbatches of 2 rows, M 2, fused, 5 steps
+     (a count the epoch runtime cannot take), bit for bit against two
+     epochs of the epoch runner and one ``make_train_step`` step on its
+     state, K1 / K2 / K3 counted per step; 8b the same config on the
+     (data 2, model 2) mesh of 4 ranks sharing the card over gloo (FSDP
+     over 'data', tensor parallelism over 'model'), 4 steps, against 8a's
+     single-device run (losses within 2**-7, the sampled update within
+     5% in norm), every rank's K3 on 14 q heads and 2 kv heads, memory a
+     rank, wall and gloo bytes and collectives a step; 8c
+     ``qwen2-7b.reduced()`` in float32 with CentralVR workers on 'data'
+     (W 2, ``dp_replicated``) and TP inside, against the vmap W 2 epoch
+     runner (losses and params within LM_TOL), the worker spread above 0
+     after a local step and exactly 0 at each epoch boundary. ``--mesh``
+     runs only the device phase, the build and this phase;
+  9. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape; CUDA events for K1 at
      the LM shapes and for vr_epoch), its bound on this card, the time of
@@ -302,7 +319,8 @@ device time by autograd node.
 ``--spmd`` only the device phase, the build and phase 4c; ``--fleet``
 only the device phase, the build and phase 6c; ``--archs`` the device
 phase, the build and phase 6d (see there); ``--serve`` the device
-phase, the build and phase 7.
+phase, the build and phase 7; ``--mesh`` the device phase, the build and
+phase 8.
 
 ``--rates`` runs only the device phase, vr_epoch's device time at each
 convex path's shape, lazy_epoch's per epoch through its public wrapper
@@ -3194,6 +3212,365 @@ def phase_serve(torch, kernels, profile=False):
                 launches={"rmsnorm": timing["k2_launches"]})
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the per-step runtime and the 2-D data x model meshes
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 5                  # lane 8a: 2*M*K + 1, not a whole epoch count
+MESH_FSDP_STEPS = 4             # lane 8b
+MESH_WORKER_STEPS = 4           # lane 8c
+MESH_RANKS = 4                  # (data 2, model 2), sharing the card over gloo
+
+
+def mesh_configs():
+    """Lanes 8a and 8b: the Qwen2-7B width at 2 layers, seq 1024, W 1,
+    A 2 microbatches of 2 rows (one a data rank in 8b), CentralVR M 2,
+    SGD. Lane 8c: ``qwen2-7b.reduced()`` in float32, W 2 on 'data' with
+    ``dp_replicated``, A 2 of 2 rows, seq 256."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+
+    full = dataclasses.replace(get_arch("qwen2-7b"), num_layers=2)
+    tcfg = TrainConfig(seq_len=1024, global_batch=4, microbatch=2,
+                       learning_rate=1e-2, optimizer="sgd", vr="centralvr",
+                       vr_table_size=2, local_epoch=1, remat="block", seed=0)
+    red = dataclasses.replace(get_arch("qwen2-7b").reduced(),
+                              dtype="float32")
+    tred = dataclasses.replace(tcfg, seq_len=256, global_batch=8,
+                               learning_rate=0.1, dp_replicated=True)
+    return (full, tcfg), (red, tred)
+
+
+def mesh_tokens(cfg, tcfg, W):
+    """The run's token block (W, M*K, A, mb, S) on the host, the same in
+    every process (the epoch runner's default)."""
+    from repro_torch.data import synthetic
+    from repro_torch.train import step as tstep
+
+    accum, mb = tstep.batch_geometry(tcfg, W)
+    return synthetic.epoch_tokens(cfg, tcfg.seed, workers=W, steps=2,
+                                  accum=accum, microbatch=mb,
+                                  seq=tcfg.seq_len, table_size=2)
+
+
+def local_sample(torch, layout, flat, sample):
+    """The entries of the full flat params at the indices ``sample`` that
+    this rank's shards hold: (positions in ``sample``, values float64 on
+    the host)."""
+    pos, vals = [], []
+    sample = sample.to(flat.device)
+    for j, (full, sl) in enumerate(zip(layout.full.shapes, layout.slices)):
+        o = layout.full.offsets[j]
+        hit = ((sample >= o) & (sample < o + full.numel())).nonzero()[:, 0]
+        if not len(hit):
+            continue
+        rem = sample[hit] - o
+        coords = []
+        for n in reversed(full):
+            coords.append(rem % n)
+            rem = rem // n
+        coords = coords[::-1]
+        inside = torch.ones_like(hit, dtype=torch.bool)
+        local = torch.zeros_like(hit)
+        for c, x, n in zip(coords, sl, layout.shapes[j]):
+            inside &= (c >= x.start) & (c < x.stop)
+            local = local * n + (c - x.start)
+        pos.append(hit[inside])
+        vals.append(flat[layout.offsets[j] + local[inside]])
+    return (torch.cat(pos).cpu(), torch.cat(vals).double().cpu())
+
+
+def mesh_single(torch, kernels):
+    """Lane 8a: ``host_loop.run_training`` on ``make_test_mesh()`` (one
+    rank, (1, 1)) for MESH_STEPS steps, fused, counts set to 0 just
+    before; held bit for bit against the epoch runner's two epochs from
+    the same seed followed by one ``make_train_step`` step on its state.
+    Returns the record, with the epoch runner's losses and sampled params
+    at steps 0 and 4 (lane 8b's yardstick)."""
+    import gc
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import model
+    from repro_torch.train import host_loop
+    from repro_torch.train import step as tstep
+
+    (cfg, tcfg), _ = mesh_configs()
+    n = model.ParamLayout(cfg).n
+    sample = torch.randint(0, n, (min(LM_SAMPLES, n),),
+                           generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    run, _ = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True)
+    state = tstep.init_train_state(cfg, tcfg, 1)
+    p0 = state.params[0, sample.to(state.params.device)].double().cpu()
+    losses = []
+    for _ in range(2):
+        state, ls = run(state)
+        losses.append(ls)
+    epoch_losses = torch.cat(losses).tolist()
+    p4 = state.params[0, sample.to(state.params.device)].double().cpu()
+    step, _ = tstep.make_train_step(cfg, tcfg, meshlib.make_test_mesh(),
+                                    fused=True)
+    toks = mesh_tokens(cfg, tcfg, 1)
+    for s in range(len(epoch_losses), MESH_STEPS):
+        state, out = step(state, toks[0, s % 2])
+        epoch_losses.append(float(out["loss"]))
+    want = state.params.cpu()
+    del state, run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    res = host_loop.run_training(cfg, tcfg, steps=MESH_STEPS,
+                                 mesh=meshlib.make_test_mesh(), fused=True,
+                                 log_every=0)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    same_params = torch.equal(res.state.params, want.to(
+        res.state.params.device))
+    del res.state, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = {k: v * MESH_STEPS
+              for k, v in expected_launches(cfg, 2, 1).items()}
+    label = "qwen2-7b width L=2 (1, 1) mesh, host loop"
+    log(f"[mesh] 8a {label}: losses {res.losses} (epoch runner + one step "
+        f"{epoch_losses}); params equal bit for bit: {same_params}")
+    log(f"[mesh] 8a {label}: {MESH_STEPS} steps in {res.wall_time!r} s, "
+        f"{MESH_STEPS / res.wall_time!r} steps/s; peak memory {peak} bytes; "
+        f"launches {counts} (expected {expect})")
+    if res.losses != epoch_losses or not same_params:
+        raise AssertionError(f"[mesh] 8a: the host loop differs from the "
+                             f"epoch runner: losses {res.losses} against "
+                             f"{epoch_losses}, params equal {same_params}")
+    if counts != expect:
+        raise AssertionError(f"[mesh] 8a: launches {counts}, expected "
+                             f"{expect}")
+    return dict(label=label, losses=res.losses, steps=MESH_STEPS,
+                wall_s=res.wall_time, steps_s=MESH_STEPS / res.wall_time,
+                peak_bytes=peak, counts=counts, eval_loss=res.final_eval_loss,
+                epoch_losses=epoch_losses[:MESH_FSDP_STEPS], p0=p0, p4=p4,
+                sample=sample.numpy())
+
+
+def mesh_rank_fsdp(group, sample):
+    """In a rank of lane 8b: ``make_train_step`` on the (data 2, model 2)
+    mesh, FSDP over 'data' and TP over 'model', MESH_FSDP_STEPS fused
+    steps from the seeded state, counts set to 0 just before; K3's q / kv
+    shapes recorded at each launch."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (cfg, tcfg), _ = mesh_configs()
+    m = meshlib.make_test_mesh()
+    shapes = set()
+    launch = fa_kernel.flash_attention
+
+    def spy(q, k, v, **kw):
+        shapes.add((tuple(q.shape), tuple(k.shape)))
+        return launch(q, k, v, **kw)
+    fa_kernel.flash_attention = spy
+    step, meta = tstep.make_train_step(cfg, tcfg, m, fused=True)
+    pl = meta["placement"]
+    state = tstep.init_train_state(cfg, tcfg, 1, mesh=m)
+    sample = torch.from_numpy(sample)
+    p0 = local_sample(torch, pl.layout, state.params[0], sample)
+    toks = mesh_tokens(cfg, tcfg, 1)
+    kernels = kernel_modules()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    c0, b0 = m.collectives, m.carried_bytes
+    losses, step_s = [], []
+    for s in range(MESH_FSDP_STEPS):
+        t0 = time.perf_counter()
+        state, out = step(state, toks[0, s % 2])
+        losses.append(float(out["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts(kernels)
+    p4 = local_sample(torch, pl.layout, state.params[0], sample)
+    return dict(losses=losses, step_s=step_s, counts=counts,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                local_n=pl.layout.n, full_n=pl.layout.full.n,
+                collectives=(m.collectives - c0) / MESH_FSDP_STEPS,
+                carried_bytes=(m.carried_bytes - b0) / MESH_FSDP_STEPS,
+                k3=sorted(shapes), transport=m.transport, coords=m.coords,
+                device=str(m.device), p0=p0, p4=p4)
+
+
+def mesh_fsdp_tp(torch, kernels, single):
+    """Lane 8b: MESH_RANKS ranks on the card, each with its shards, against
+    lane 8a's single-device run of the same seed and tokens: losses within
+    LOSS_RTOL (relative), the sampled params' update within UPDATE_RTOL
+    in norm, every rank's K3 on 14 q heads and 2 kv heads, launches per
+    step as the single-device step's."""
+    from repro_torch.launch import mesh as meshlib
+
+    (cfg, _), _ = mesh_configs()
+    ranks = meshlib.spawn_workers(MESH_RANKS, mesh_rank_fsdp,
+                                  single["sample"])
+    label = "qwen2-7b width L=2 (data 2, model 2) FSDP+TP"
+    want_losses = torch.tensor(single["epoch_losses"], dtype=torch.float64)
+    expect = {k: v * MESH_FSDP_STEPS
+              for k, v in expected_launches(cfg, 2, 1).items()}
+    # one row of 1024 a rank; heads 28 / 4 kv split over 'model'
+    k3 = [((1, 1024, 14, 128), (1, 1024, 2, 128))]
+    n = len(single["sample"])
+    got0 = torch.full((n,), float("nan"), dtype=torch.float64)
+    got4 = got0.clone()
+    for r, rec in enumerate(ranks):
+        for dst, (pos, vals) in ((got0, rec["p0"]), (got4, rec["p4"])):
+            seen = ~torch.isnan(dst[pos])
+            if not torch.equal(dst[pos][seen], vals[seen]):
+                raise AssertionError(f"[mesh] 8b: rank {r}'s replicated "
+                                     "params differ from another rank's")
+            dst[pos] = vals
+        if rec["counts"] != expect:
+            raise AssertionError(f"[mesh] 8b: rank {r} launched "
+                                 f"{rec['counts']}, expected {expect}")
+        if [tuple(map(tuple, x)) for x in rec["k3"]] != k3:
+            raise AssertionError(f"[mesh] 8b: rank {r} launched K3 at "
+                                 f"{rec['k3']}, expected {k3}")
+        if rec["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"[mesh] 8b: rank {r}'s losses differ")
+    if bool(torch.isnan(got0).any() | torch.isnan(got4).any()):
+        raise AssertionError("[mesh] 8b: sampled params no rank holds")
+    losses = torch.tensor(ranks[0]["losses"], dtype=torch.float64)
+    loss_err = float(((losses - want_losses).abs()
+                      / want_losses.abs()).max())
+    want_delta = single["p4"] - single["p0"]
+    if not (torch.equal(got0, single["p0"])):
+        raise AssertionError("[mesh] 8b: the sharded init differs from the "
+                             "single-device one")
+    upd_err = float(((got4 - got0) - want_delta).norm() / want_delta.norm())
+    for r, rec in enumerate(ranks):
+        log(f"[mesh] 8b {label}: rank {r} {rec['coords']} on "
+            f"{rec['device']} ({rec['transport']}): {rec['local_n']} of "
+            f"{rec['full_n']} params, peak memory {rec['peak_bytes']} bytes, "
+            f"steps {rec['step_s']} s, {rec['collectives']!r} collectives "
+            f"and {rec['carried_bytes']!r} bytes a step, K3 at {rec['k3']}")
+    log(f"[mesh] 8b {label}: losses {ranks[0]['losses']} against "
+        f"{single['epoch_losses']}: max relative difference {loss_err!r} "
+        f"(tolerance {LOSS_RTOL!r}); sampled update difference in norm "
+        f"{upd_err!r} (tolerance {UPDATE_RTOL!r}) on {n} params")
+    if not loss_err <= LOSS_RTOL:
+        raise AssertionError(f"[mesh] 8b: losses differ by {loss_err}")
+    if not upd_err <= UPDATE_RTOL:
+        raise AssertionError(f"[mesh] 8b: updates differ by {upd_err}")
+    return dict(label=label, losses=ranks[0]["losses"], loss_err=loss_err,
+                update_err=upd_err, step_s=[r["step_s"] for r in ranks],
+                peak_bytes=[r["peak_bytes"] for r in ranks],
+                local_n=ranks[0]["local_n"],
+                collectives=ranks[0]["collectives"],
+                carried_bytes=ranks[0]["carried_bytes"],
+                counts=[r["counts"] for r in ranks],
+                transport=ranks[0]["transport"])
+
+
+def mesh_rank_workers(group):
+    """In a rank of lane 8c: CentralVR workers on 'data' (W 2,
+    ``dp_replicated``), TP over 'model', MESH_WORKER_STEPS fused steps;
+    the worker spread after each step (maxed over the world)."""
+    import torch
+
+    from repro_torch.core import spmd
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.train import step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, (cfg, tcfg) = mesh_configs()
+    m = meshlib.make_test_mesh()
+    step, meta = tstep.make_train_step(cfg, tcfg, m, "data", fused=True)
+    pl = meta["placement"]
+    state = tstep.init_train_state(cfg, tcfg, 2, mesh=m, vr_workers="data")
+    toks = mesh_tokens(cfg, tcfg, 2)
+    kernels = kernel_modules()
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    losses, spreads = [], []
+    world = m.group(m.axis_names)
+    for s in range(MESH_WORKER_STEPS):
+        state, out = step(state, toks[:, s % 2])
+        losses.append(float(out["loss"]))
+        avg = pl.worker_mean_(state.params.clone())
+        spread = (state.params - avg).abs().max().reshape(1)
+        spreads.append(float(spmd.pmax_(spread, world)[0]))
+    counts = read_counts(kernels)
+    return dict(losses=losses, spreads=spreads, counts=counts,
+                params=pl.gather_full(state.params), coords=m.coords,
+                shape=list(state.params.shape))
+
+
+def mesh_workers(torch, kernels):
+    """Lane 8c: MESH_RANKS ranks, W 2 on 'data', against the port's vmap
+    W 2 epoch runner on the same tokens and seed (run here first): losses
+    and params within LM_TOL, the spread above 0 after a local step and
+    exactly 0 at each epoch boundary."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.train import step as tstep
+
+    _, (cfg, tcfg) = mesh_configs()
+    run, _ = tstep.make_epoch_runner(cfg, tcfg, 2, fused=True)
+    state = tstep.init_train_state(cfg, tcfg, 2)
+    losses = []
+    for _ in range(MESH_WORKER_STEPS // 2):
+        state, ls = run(state)
+        losses.append(ls)
+    want_losses = torch.cat(losses).double().cpu()
+    want = state.params.double().cpu()
+    del state, run
+    ranks = meshlib.spawn_workers(MESH_RANKS, mesh_rank_workers)
+    label = "qwen2-7b reduced f32 (data 2, model 2) workers data"
+    for r, rec in enumerate(ranks):
+        sp = rec["spreads"]
+        if not (all(x > 0.0 for x in sp[0::2])
+                and all(x == 0.0 for x in sp[1::2])):
+            raise AssertionError(f"[mesh] 8c: rank {r} spreads {sp}: not "
+                                 "above 0 between boundaries and 0 at them")
+        torch.testing.assert_close(torch.tensor(rec["losses"],
+                                                dtype=torch.float64),
+                                   want_losses, **LM_TOL)
+        torch.testing.assert_close(rec["params"].double(), want, **LM_TOL)
+        if rec["counts"]["vr_update"] != MESH_WORKER_STEPS:
+            raise AssertionError(f"[mesh] 8c: rank {r} launched K1 "
+                                 f"{rec['counts']['vr_update']} times")
+    err = float((ranks[0]["params"].double() - want).abs().max())
+    log(f"[mesh] 8c {label}: losses {ranks[0]['losses']} (vmap "
+        f"{want_losses.tolist()}); spreads {ranks[0]['spreads']}; params "
+        f"largest difference {err!r}; launches a rank {ranks[0]['counts']}")
+    return dict(label=label, losses=ranks[0]["losses"],
+                spreads=ranks[0]["spreads"], param_err=err,
+                counts=[r["counts"] for r in ranks])
+
+
+def phase_mesh(torch, kernels):
+    """Phase 8: the per-step runtime (8a), FSDP and TP over 4 ranks at the
+    Qwen2-7B width (8b), Algorithm 2 across 'data' with TP inside (8c)."""
+    t0 = time.perf_counter()
+    single = mesh_single(torch, kernels)
+    fsdp = mesh_fsdp_tp(torch, kernels, single)
+    workers = mesh_workers(torch, kernels)
+    launches = dict(single["counts"])
+    for c in fsdp["counts"] + workers["counts"]:
+        for k, v in c.items():
+            launches[k] += v
+    single = {k: v for k, v in single.items()
+              if k not in ("p0", "p4", "sample")}
+    log(f"[path] phase 8 (mesh) in {time.perf_counter() - t0:.1f} s")
+    return dict(single=single, fsdp_tp=fsdp, workers=workers,
+                launches=launches)
+
+
 def graph_ms(torch, fn, calls=200, replays=20):
     """Device time per call of ``fn``: ``calls`` back-to-back calls
     captured in one CUDA graph, replayed, timed with CUDA events."""
@@ -3801,6 +4178,15 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--mesh" in sys.argv[1:]:
+        mesh_rec = phase_mesh(torch, kernels)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"mesh": mesh_rec}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--serve" in sys.argv[1:]:
         serve = phase_serve(torch, kernels, "--profile" in sys.argv[1:])
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -3846,6 +4232,7 @@ def main():
     telemetry = phase_obs(torch, kernels)
     fleet = phase_fleet(torch, kernels)
     serve = phase_serve(torch, kernels, "--profile" in sys.argv[1:])
+    mesh_rec = phase_mesh(torch, kernels)
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                (2, model.ParamLayout(mamba_full).n),
@@ -3883,12 +4270,15 @@ def main():
         total[name] += n
     for name, n in serve["launches"].items():
         total[name] += n
+    for name, n in mesh_rec["launches"].items():
+        total[name] += n
     mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
     lm_paths = [{k: r[k] for k in LM_PATH_KEYS} for r in lm]
     head = epoch_times[0]
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(f"[card] {smi}")
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"mesh": mesh_rec}))
     log(json.dumps({"kernels": [{
         "name": "vr_update", "route": "cuda",
         "source": "src/repro_torch/kernels/vr_update/csrc/vr_update.cu",

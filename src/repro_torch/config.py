@@ -1,13 +1,15 @@
 """Configuration of the port: copies of ``repro.config``'s
 :class:`ModelConfig` (with ``reduced()``, ``param_count()`` and
-``layer_kinds()``), :class:`TrainConfig` and :class:`ConvexConfig`, field
-for field, and the arch registry (``register`` / ``get_arch``) that
-``repro_torch.configs`` fills.
+``layer_kinds()``), :class:`InputShape` and ``INPUT_SHAPES``,
+:class:`TrainConfig`, :class:`MeshConfig` and :class:`ConvexConfig`,
+field for field, the arch registry (``register`` / ``get_arch``) that
+``repro_torch.configs`` fills, and ``apply_overrides``.
 
 The port keeps its own copy, because it imports nothing of ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -197,6 +199,26 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (assigned, global sizes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
 # Training configuration
 # ---------------------------------------------------------------------------
 
@@ -217,6 +239,27 @@ class TrainConfig:
     remat: str = "block"             # "none" | "block" | "full"
     dp_replicated: bool = False      # paper-faithful pure-DP (no FSDP) when True
     seed: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axis_names
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    def data_axes(self) -> Tuple[str, ...]:
+        """Axes over which the batch (and CentralVR workers) are sharded."""
+        return tuple(a for a in self.axis_names if a in ("pod", "data"))
 
 
 # ---------------------------------------------------------------------------
@@ -271,3 +314,22 @@ def list_archs() -> Tuple[str, ...]:
 def _ensure_loaded() -> None:
     if not _REGISTRY:
         import repro_torch.configs  # noqa: F401  (registers every arch)
+
+
+def apply_overrides(cfg, overrides: dict):
+    """``replace`` with string-typed values coerced to the field type."""
+    coerced = {}
+    fields = {f.name: f for f in dataclasses.fields(cfg)}
+    for k, v in overrides.items():
+        if k not in fields:
+            raise KeyError(f"{type(cfg).__name__} has no field {k!r}")
+        t = fields[k].type
+        if isinstance(v, str):
+            if "int" in str(t):
+                v = int(v)
+            elif "float" in str(t):
+                v = float(v)
+            elif "bool" in str(t):
+                v = v.lower() in ("1", "true", "yes")
+        coerced[k] = v
+    return replace(cfg, **coerced)

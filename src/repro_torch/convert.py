@@ -11,7 +11,9 @@ along a leading axis for its scan) become the port's tree, one entry per
 layer (:func:`lm_params_from_jax`), its decode and serve caches the
 port's per-layer lists (:func:`decode_cache_from_jax`,
 :func:`serve_cache_from_jax`), and its token blocks become int64 tensors
-(:func:`tokens_from_jax`).
+(:func:`tokens_from_jax`). On a process mesh, :func:`shard_params` gives
+one mesh position's local flat buffer of the reference's params, and
+:func:`gather_flat` puts every position's buffers back together.
 
 The reference draws its visit orders and sample indices inside its
 drivers with ``jax.random``; one function per driver here
@@ -252,6 +254,42 @@ def lm_params_from_jax(params_np, cfg):
     if "frontend_proj" in params_np:
         out["frontend_proj"] = _tensor_of(params_np["frontend_proj"])
     return out
+
+
+def _sharded_layout(cfg, mesh_sizes, coords, fsdp):
+    from repro_torch.train.step import ShardedLayout
+    names, shape = tuple(mesh_sizes), tuple(mesh_sizes.values())
+    if isinstance(coords, dict):
+        coords = tuple(coords[a] for a in names)
+    return ShardedLayout(cfg, names, shape, coords, fsdp=fsdp)
+
+
+def shard_params(params_np, cfg, mesh_sizes: dict, coords, *,
+                 fsdp: bool = True) -> torch.Tensor:
+    """The reference's full LM params as the local flat buffer (N_local,)
+    of the mesh position ``coords`` (a tuple in the order of
+    ``mesh_sizes`` — ``{axis: size}`` in mesh order — or a dict by axis):
+    each leaf's shard under ``sharding/specs.py`` (FSDP over 'data' when
+    ``fsdp``), in ``train.step.ShardedLayout`` order, on the CPU."""
+    lay = _sharded_layout(cfg, mesh_sizes, coords, fsdp)
+    flat = torch.empty(lay.n, dtype=getattr(torch, cfg.param_dtype))
+    return lay.load_(flat, lm_params_from_jax(params_np, cfg))
+
+
+def gather_flat(flats, cfg, mesh_sizes: dict, *,
+                fsdp: bool = True) -> torch.Tensor:
+    """The inverse of :func:`shard_params`: every mesh position's local
+    flat buffer, in rank order (row-major over ``mesh_sizes``), put
+    together into the full flat buffer (N,) of ``models.model.ParamLayout``
+    (whose ``views`` give the params tree)."""
+    from repro_torch.launch.mesh import unravel
+    shape = tuple(mesh_sizes.values())
+    lay = _sharded_layout(cfg, mesh_sizes, (0,) * len(shape), fsdp)
+    full = torch.zeros(lay.full.n, dtype=flats[0].dtype)
+    for q, local in enumerate(flats):
+        lay.scatter_into(full, torch.as_tensor(local).reshape(-1),
+                         unravel(q, shape))
+    return full
 
 
 def _tensor_of(a):

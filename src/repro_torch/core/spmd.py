@@ -145,6 +145,54 @@ def all_gather(t: torch.Tensor, g: WorkerGroup) -> torch.Tensor:
     return out
 
 
+def pmax_(t: torch.Tensor, g: WorkerGroup) -> torch.Tensor:
+    """``t`` maxed over the ranks, in place."""
+    import torch.distributed as dist
+
+    if g.world == 1:
+        return t
+    if _staged(g, t):
+        host = _to_host(t)
+        dist.all_reduce(host, op=dist.ReduceOp.MAX, group=g.group)
+        t.copy_(host, non_blocking=True)
+    else:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g.group)
+    g.carried_bytes += t.numel() * t.element_size()
+    g.collectives += 1
+    return t
+
+
+def all_gather_dim(t: torch.Tensor, g: WorkerGroup, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (the
+    shards of a leaf split along ``dim``); ``t`` itself in a group of
+    one."""
+    if g.world == 1:
+        return t
+    out = all_gather(t, g)                    # (p, *t.shape)
+    return torch.cat(out.unbind(0), dim=dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, g: WorkerGroup,
+                       dim: int) -> torch.Tensor:
+    """``t`` summed over the ranks and split along ``dim`` into p equal
+    shards, this rank's shard returned (the adjoint of
+    :func:`all_gather_dim`)."""
+    import torch.distributed as dist
+
+    if g.world == 1:
+        return t
+    staged = _staged(g, t)
+    src = _to_host(t) if staged else t
+    parts = [c.contiguous() for c in src.chunk(g.world, dim=dim)]
+    out = torch.empty_like(parts[0], pin_memory=staged)
+    dist.reduce_scatter(out, parts, group=g.group)
+    if staged:
+        out = out.to(t.device, non_blocking=True)
+    g.carried_bytes += out.numel() * out.element_size()
+    g.collectives += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # In-shard metric helpers
 # ---------------------------------------------------------------------------

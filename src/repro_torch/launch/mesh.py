@@ -1,11 +1,16 @@
-"""Worker groups of the spmd backend — the port of
-``repro/launch/mesh.py``'s ``make_worker_mesh``: one CentralVR worker
-per process (rank) over ``torch.distributed``, where the reference puts
-one worker on each device of a ``jax.sharding.Mesh``.
+"""Process meshes of the port — the port of ``repro/launch/mesh.py``:
+one rank per position of a mesh over ``torch.distributed``, where the
+reference puts one device at each position of a ``jax.sharding.Mesh``.
 
   * :func:`make_worker_mesh` — the rank's :class:`WorkerGroup` in the
     default process group (one initialised by :func:`spawn_workers`, or
-    joined from ``torchrun``'s environment);
+    joined from ``torchrun``'s environment): the 1-D worker mesh of the
+    spmd backend;
+  * :func:`make_mesh`, :func:`make_production_mesh`,
+    :func:`make_test_mesh` — the 2-D (data, model) and 3-D (pod, data,
+    model) meshes of the sharded train step (:class:`ProcessMesh`): the
+    rank's coordinates, and one :class:`WorkerGroup` per axis (its row
+    and its column) and over (pod, data);
   * :func:`spawn_workers` — starts p ranks on this host, runs a function
     in each, returns every rank's result and re-raises a rank's failure;
   * :func:`pick_transport` — the rule that chooses the collectives'
@@ -14,10 +19,7 @@ one worker on each device of a ``jax.sharding.Mesh``.
     through host memory (``core/spmd.py`` stages them in the open).
 
 A rank's device is ``cuda:(local_rank % device_count)``, or the CPU when
-the caller asks for it (the tests). The reference's 2-D data x model
-meshes (``make_production_mesh``, ``make_mesh``, ``MeshConfig``) serve
-its sharded train step and are not ported yet (ROADMAP.md queue 1, item
-13 (rest)).
+the caller asks for it (the tests).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -164,19 +166,253 @@ def make_worker_mesh(p: int, *, transport: str = "auto",
                        device=dev, transport=have)
 
 
-def worker_axes(group: WorkerGroup, vr_workers: str) -> Tuple[str, ...]:
-    """Which axes carry CentralVR worker copies: the group's one worker
-    axis for ``"data"`` (the paper's layout), none for ``"none"`` (plain
-    data parallel) and ``"pod"`` (a 1-D group has no pod axis)."""
-    if vr_workers == "data":
-        return ("workers",)
-    if vr_workers in ("none", "pod"):
+# ---------------------------------------------------------------------------
+# The 2-D and 3-D meshes of the sharded train step
+# ---------------------------------------------------------------------------
+
+# the axes whose every combination a mesh builds a group for: each axis
+# alone, and (pod, data), the worker axes of vr_workers="data" on a pod mesh
+_GROUP_AXES = (("pod", "data"),)
+
+
+@dataclass
+class ProcessMesh:
+    """One rank's view of a mesh of ranks: the axis names and sizes, the
+    rank's coordinates (row-major over the axes, as ``jax.make_mesh``
+    lays devices out), its device, the transport, and one
+    :class:`WorkerGroup` per axis and per combination the train step
+    reduces over (``groups``, keyed by a tuple of axis names in mesh
+    order). A group of size 1 has no process group and its collectives
+    do nothing."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    rank: int
+    world: int
+    coords: Tuple[int, ...]
+    device: torch.device
+    transport: str
+    groups: Dict[Tuple[str, ...], WorkerGroup]
+
+    @property
+    def size(self) -> int:
+        return self.world
+
+    def axes(self, names) -> Tuple[str, ...]:
+        """``names`` (an axis, or axes) that the mesh has, in mesh order."""
+        if isinstance(names, str):
+            names = (names,)
+        return tuple(a for a in self.axis_names if a in names)
+
+    def group(self, names) -> WorkerGroup:
+        """The rank's group over the axes ``names`` (those of them that the
+        mesh has; none gives a group of one)."""
+        key = self.axes(names)
+        if not key:
+            return self.groups[()]
+        return self.groups[key]
+
+    def index(self, names) -> int:
+        """The rank's row-major index over the axes ``names``."""
+        i = 0
+        for a in self.axes(names):
+            k = self.axis_names.index(a)
+            i = i * self.shape[k] + self.coords[k]
+        return i
+
+    def count(self, names) -> int:
+        n = 1
+        for a in self.axes(names):
+            n *= self.shape[self.axis_names.index(a)]
+        return n
+
+    @property
+    def carried_bytes(self) -> int:
+        return sum(g.carried_bytes for g in self.groups.values())
+
+    @property
+    def collectives(self) -> int:
+        return sum(g.collectives for g in self.groups.values())
+
+
+def unravel(q: int, shape) -> Tuple[int, ...]:
+    """The coordinates of rank ``q`` on a mesh of ``shape`` (row-major)."""
+    coords = []
+    for s in reversed(tuple(shape)):
+        coords.append(q % s)
+        q //= s
+    return tuple(reversed(coords))
+
+
+def _world_size() -> int:
+    """The world of the default process group, or of ``torchrun``'s
+    environment, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def _build_mesh(shape, axis_names, *, transport: str = "auto",
+                device=None) -> ProcessMesh:
+    """This rank's :class:`ProcessMesh` of ``shape`` over the default
+    process group (joined from ``torchrun``'s environment when there is
+    none yet). A world of one needs no process group."""
+    import itertools
+
+    import torch.distributed as dist
+
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axes {axis_names} differ "
+                         "in length")
+    n = 1
+    for s in shape:
+        n *= s
+    world = _world_size()
+    if world != n:
+        raise ValueError(
+            f"a mesh of shape {dict(zip(axis_names, shape))} needs {n} "
+            f"ranks, one at each position; this world has {world}")
+    if world == 1:
+        rank = 0
+        dev = torch.device(device) if device is not None else None
+        if dev is None:
+            from repro_torch.kernels import resolve_device
+            dev = resolve_device(None, "repro_torch.launch.mesh")
+        have = pick_transport(transport, dev, 1)
+    else:
+        if not dist.is_initialized():
+            make_worker_mesh(world, transport=transport, device=device)
+        rank = dist.get_rank()
+        dev = rank_device(rank, device)
+        have = dist.get_backend()
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    coords = unravel(rank, shape)
+
+    def solo():
+        return WorkerGroup(rank=0, world=1, group=None, device=dev,
+                           transport=have)
+
+    keys = [(a,) for a in axis_names] + [
+        k for k in _GROUP_AXES if all(a in axis_names for a in k)]
+    groups = {(): solo()}
+    # every axis at once: the whole world, in rank order
+    groups[axis_names] = (solo() if world == 1 else WorkerGroup(
+        rank=rank, world=world, group=dist.group.WORLD, device=dev,
+        transport=have))
+    for key in keys:
+        if key in groups:
+            continue
+        dims = [axis_names.index(a) for a in key]
+        size = 1
+        for d in dims:
+            size *= shape[d]
+        if size == 1:
+            groups[key] = solo()
+            continue
+        others = [range(s) if i not in dims else [None]
+                  for i, s in enumerate(shape)]
+        # every rank creates every group, in the same order
+        for fixed in itertools.product(*others):
+            members = []
+            for inner in itertools.product(*(range(shape[d]) for d in dims)):
+                c = list(fixed)
+                for d, v in zip(dims, inner):
+                    c[d] = v
+                q = 0
+                for i, s in enumerate(shape):
+                    q = q * s + c[i]
+                members.append(q)
+            pg = dist.new_group(members)
+            if rank in members:
+                groups[key] = WorkerGroup(rank=members.index(rank),
+                                          world=size, group=pg, device=dev,
+                                          transport=have)
+    return ProcessMesh(axis_names=axis_names, shape=shape, rank=rank,
+                       world=world, coords=coords, device=dev,
+                       transport=have, groups=groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False, transport: str = "auto",
+                         device=None) -> ProcessMesh:
+    """The target deployment: (data 16, model 16) = 256 ranks, one a
+    card; two pods add a leading 'pod' axis = 512. Raises on any other
+    world, naming the one it needs — never a smaller mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 512 if multi_pod else 256
+    world = _world_size()
+    if world != need:
+        raise ValueError(
+            f"make_production_mesh(multi_pod={multi_pod}): the production "
+            f"mesh {dict(zip(axes, shape))} needs a world of {need} ranks, "
+            f"one a card; this world has {world} (ROADMAP.md, queue 3: the "
+            "production meshes have not run)")
+    return _build_mesh(shape, axes, transport=transport, device=device)
+
+
+def make_mesh(cfg, *, transport: str = "auto", device=None) -> ProcessMesh:
+    """The mesh of a ``config.MeshConfig``."""
+    return _build_mesh(cfg.shape, cfg.axis_names, transport=transport,
+                       device=device)
+
+
+def make_test_mesh(devices: Optional[int] = None, model_axis: int = 2, *,
+                   transport: str = "auto", device=None) -> ProcessMesh:
+    """Small (data, model) mesh over the world's ranks: ``model_axis``
+    wide when it divides a world above one rank, else (n, 1); a world of
+    one rank is the (1, 1) mesh on the rank's device."""
+    world = _world_size()
+    n = devices or world
+    if n != world:
+        raise ValueError(f"make_test_mesh(devices={devices}): this world "
+                         f"has {world} ranks")
+    model = model_axis if n % model_axis == 0 and n > 1 else 1
+    return _build_mesh((n // model, model), ("data", "model"),
+                       transport=transport, device=device)
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    if isinstance(mesh, ProcessMesh):
+        return dict(zip(mesh.axis_names, mesh.shape))
+    return {"workers": mesh.world}
+
+
+def worker_axes(mesh, vr_workers: str) -> Tuple[str, ...]:
+    """Which axes carry CentralVR worker copies.
+
+    On a :class:`ProcessMesh`: 'data' — one worker per data-axis group
+    (params replicated along these axes), 'pod' included when present;
+    'pod' — workers across pods, FSDP inside; 'none' — plain
+    data-parallel. On a 1-D :class:`WorkerGroup`: its one worker axis for
+    'data', none for 'none' and 'pod' (a 1-D group has no pod axis)."""
+    if not isinstance(mesh, ProcessMesh):
+        if vr_workers == "data":
+            return ("workers",)
+        if vr_workers in ("none", "pod"):
+            return ()
+        raise ValueError(vr_workers)
+    names = mesh.axis_names
+    if vr_workers == "none":
         return ()
+    if vr_workers == "pod":
+        return ("pod",) if "pod" in names else ()
+    if vr_workers == "data":
+        return tuple(a for a in ("pod", "data") if a in names)
     raise ValueError(vr_workers)
 
 
-def worker_count(group: WorkerGroup, vr_workers: str) -> int:
-    return group.world if worker_axes(group, vr_workers) else 1
+def worker_count(mesh, vr_workers: str) -> int:
+    if not isinstance(mesh, ProcessMesh):
+        return mesh.world if worker_axes(mesh, vr_workers) else 1
+    sizes = mesh_axis_sizes(mesh)
+    n = 1
+    for a in worker_axes(mesh, vr_workers):
+        n *= sizes[a]
+    return max(n, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -67,13 +67,14 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def _head_mask(cfg: ModelConfig, out):
+def _head_mask(cfg: ModelConfig, out, h0: int = 0):
     """Zero the padded heads' outputs (none unless ``pad_heads_to`` is
-    set), so they are exactly inert."""
-    H = cfg.padded_heads
-    if H == cfg.num_heads:
+    set), so they are exactly inert. ``out`` holds heads h0, h0 + 1, ...
+    (a tensor-parallel rank's heads start at h0)."""
+    if cfg.padded_heads == cfg.num_heads:
         return out
-    mask = (torch.arange(H, device=out.device) < cfg.num_heads).to(out.dtype)
+    heads = torch.arange(h0, h0 + out.shape[-2], device=out.device)
+    mask = (heads < cfg.num_heads).to(out.dtype)
     return out * mask[..., :, None]
 
 
@@ -99,22 +100,72 @@ class _FlashFused(torch.autograd.Function):
         return (*grads, None)
 
 
+def tp_kv_heads(H: int, KV: int, h0: int, h1: int):
+    """The kv heads that q heads [h0, h1) of H read (GQA: head h reads kv
+    head h // (H / KV)): (k0, k1, index), the range [k0, k1) to slice,
+    and ``index`` None when the slice keeps the kernel's own ``h // g``
+    map right for the local heads, else the kv head of each local q head
+    within the slice (one kv head per q head is then gathered)."""
+    g = H // KV
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    hl, kvl = h1 - h0, k1 - k0
+    want = [(h0 + j) // g - k0 for j in range(hl)]
+    if hl % kvl == 0 and want == [j // (hl // kvl) for j in range(hl)]:
+        return k0, k1, None
+    return k0, k1, want
+
+
+def _attend_tp(p, cfg: ModelConfig, x, w):
+    """Attention over this rank's q heads (``wq``/``bq``/``wo`` split over
+    'model' by heads; ``wk``/``wv`` replicated, each rank slicing the kv
+    heads its q heads read), ending in one all-reduce over 'model'."""
+    from repro_torch.sharding import tp
+    Hl = p["wq"].shape[1]
+    h0 = tp.rank() * Hl
+    k0, k1, index = tp_kv_heads(cfg.padded_heads, cfg.num_kv_heads, h0,
+                                h0 + Hl)
+    x = tp.copy_in(x)
+    # replicated leaves used for a slice of the work: their gradients sum
+    # the ranks' slices
+    kv = {n: tp.copy_in(p[n])[..., k0:k1, :] if p[n].dim() == 3
+          else tp.copy_in(p[n])[k0:k1] for n in ("wk", "wv", "bk", "bv")
+          if n in p}
+    norms = {n: tp.copy_in(p[n]) for n in ("q_norm", "k_norm") if n in p}
+    local = dict(p, **kv, **norms)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _project_qkv(local, cfg, x, positions)
+    if index is not None:
+        sel = torch.tensor(index, device=k.device)
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    out = _attention_core(cfg, q, k, v, w)
+    out = _head_mask(cfg, out, h0)
+    B, S, H, hd = out.shape
+    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    return tp.reduce_out(y)
+
+
+def _attention_core(cfg: ModelConfig, q, k, v, w):
+    if kernel_ctx.active() and cfg.attn_logit_softcap is None:
+        return _FlashFused.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), w)
+    return chunked_attention(q, k, v, window=w,
+                             softcap=cfg.attn_logit_softcap)
+
+
 def attend_train(p, cfg: ModelConfig, x, *, window: Optional[int] = None):
     """Full block for train/prefill: project, attention, out-projection.
 
     Under ``kernel_ctx`` the attention runs as the K3 kernel (one launch
     per layer), except for softcapped archs, which the kernel does not
-    implement."""
+    implement. On a mesh whose 'model' axis splits the q heads, each
+    rank attends over its heads (:func:`_attend_tp`)."""
+    from repro_torch.sharding import tp
+    w = window if window is not None else cfg.sliding_window
+    if tp.split(p["wq"].shape[1], cfg.padded_heads):
+        return _attend_tp(p, cfg, x, w)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
-    w = window if window is not None else cfg.sliding_window
-    if kernel_ctx.active() and cfg.attn_logit_softcap is None:
-        out = _FlashFused.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), w)
-    else:
-        out = chunked_attention(q, k, v, window=w,
-                                softcap=cfg.attn_logit_softcap)
-    return output_proj_serve(p, cfg, out)
+    return output_proj_serve(p, cfg, _attention_core(cfg, q, k, v, w))
 
 
 # ---------------------------------------------------------------------------

@@ -103,16 +103,25 @@ def init_mlp(cfg: ModelConfig, new, d_ff: int = 0):
     return p
 
 
-def apply_mlp(p, x, mlp_type: str):
+def apply_mlp(p, x, mlp_type: str, tp_split: bool = False):
+    """``tp_split``: the hidden dim is split over 'model' — the up
+    projections column-parallel, the down projection row-parallel, one
+    all-reduce (``sharding/tp.py``); the output bias is added after it."""
+    from repro_torch.sharding import tp
+    if tp_split:
+        x = tp.copy_in(x)
     if mlp_type == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-        return h @ p["wd"]
+        h = h @ p["wd"]
+        return tp.reduce_out(h) if tp_split else h
     h = x @ p["wi"]
     if "bi" in p:
         h = h + p["bi"]
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(h, approximate="tanh")
     h = h @ p["wo"]
+    if tp_split:
+        h = tp.reduce_out(h)
     if "bo" in p:
         h = h + p["bo"]
     return h

@@ -156,12 +156,45 @@ class ParamLayout:
         return flat
 
 
+def _top_params(p, cfg: ModelConfig):
+    """The embedding, head and frontend projection as the model uses
+    them: under the weight-gather context their FSDP shards gathered over
+    'data' (``sharding/gather_ctx.py``), in their stored dtype."""
+    from repro_torch.sharding import gather_ctx
+    if not gather_ctx.active():
+        return p
+    d, V = cfg.d_model, cfg.vocab_size
+    p = dict(p, embed={"tok": gather_ctx.constrain(
+        "embed/tok", p["embed"]["tok"], (V, d))})
+    if "w" in p["head"]:
+        p["head"] = {"w": gather_ctx.constrain("head/w", p["head"]["w"],
+                                               (d, V))}
+    if "frontend_proj" in p:
+        p["frontend_proj"] = gather_ctx.constrain(
+            "frontend_proj", p["frontend_proj"], (d, d))
+    return p
+
+
+def _vocab_split(p, cfg: ModelConfig) -> bool:
+    """Whether the embedding's vocab rows are split over 'model' (then so
+    are the head's columns: both specs put 'model' on the vocab dim)."""
+    from repro_torch.sharding import tp
+    return tp.split(p["embed"]["tok"].shape[0], cfg.vocab_size)
+
+
 def _embed_inputs(p, cfg: ModelConfig, batch):
+    from repro_torch.sharding import tp
     compute = getattr(torch, cfg.dtype)
-    x = layers.embed_tokens(p["embed"], batch["tokens"]).to(compute)
+    if _vocab_split(p, cfg):
+        x = tp.embed(p["embed"]["tok"], batch["tokens"]).to(compute)
+    else:
+        x = layers.embed_tokens(p["embed"], batch["tokens"]).to(compute)
     fe = batch.get("frontend_embeds")
     if cfg.frontend is not None and fe is not None:
-        fe = fe.to(compute) @ p["frontend_proj"].to(compute)
+        w = p["frontend_proj"]
+        fe = fe.to(compute) @ w.to(compute)
+        if tp.split(w.shape[1], cfg.d_model):
+            fe = tp.gather_out(fe)
         x = torch.cat([fe, x], dim=1)
     return x
 
@@ -169,11 +202,16 @@ def _embed_inputs(p, cfg: ModelConfig, batch):
 def forward(p, cfg: ModelConfig, batch, *, remat: str = "block",
             window: Optional[int] = None):
     """Full-sequence forward: (logits (B, S_f + S, vocab) in float32,
-    aux)."""
+    aux). On a mesh whose 'model' axis splits the vocab, the logits are
+    this rank's vocab columns (B, S_f + S, vocab / model)."""
+    from repro_torch.sharding import tp
+    p = _top_params(p, cfg)
     x = _embed_inputs(p, cfg, batch)
     x, aux = transformer.apply_stack_train(p["layers"], cfg, x, remat=remat,
                                            window=window)
     x = layers.apply_norm(p["final_norm"], x, cfg.norm_type)
+    if _vocab_split(p, cfg):
+        x = tp.copy_in(x)
     logits = layers.lm_logits(p["head"], p["embed"], x, cfg.tie_embeddings)
     return logits.to(torch.float32), aux
 
@@ -181,7 +219,10 @@ def forward(p, cfg: ModelConfig, batch, *, remat: str = "block",
 def loss_fn(p, cfg: ModelConfig, batch, *, remat: str = "block",
             window: Optional[int] = None):
     """Next-token cross-entropy + the MoE aux loss; labels default to the
-    shifted tokens. Frontend positions are left out of the loss."""
+    shifted tokens. Frontend positions are left out of the loss. With the
+    vocab split over 'model', the cross-entropy is vocab-parallel
+    (``sharding/tp.py``)."""
+    from repro_torch.sharding import tp
     logits, aux = forward(p, cfg, batch, remat=remat, window=window)
     tokens = batch["tokens"]
     labels = batch.get("labels")
@@ -191,6 +232,8 @@ def loss_fn(p, cfg: ModelConfig, batch, *, remat: str = "block",
         logits = logits[:, n_f:-1]
     else:
         logits = logits[:, n_f:]
+    if _vocab_split(p, cfg):
+        return tp.cross_entropy(logits, labels).mean() + aux
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
     return nll.mean() + aux

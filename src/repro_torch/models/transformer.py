@@ -57,21 +57,36 @@ def init_stack(cfg: ModelConfig, new):
     return [init_block(cfg, kind, new) for kind in cfg.layer_kinds()]
 
 
-def _cast_params(p, dtype):
+def _cast_params(p, dtype, cfg: Optional[ModelConfig] = None,
+                 kind: Optional[str] = None, _path: str = ""):
     """Cast every float param to the compute dtype at point of use (params
     are stored in param_dtype, float32, for the optimizer) — the SSM's
-    A_log, D and dt_bias too, as the reference casts every float leaf."""
+    A_log, D and dt_bias too, as the reference casts every float leaf —
+    and, when the explicit weight-gather context is active, gather each
+    FSDP-sharded leaf of a ``kind`` block to its FSDP-unsharded shape
+    (``sharding/gather_ctx.py``)."""
+    from repro_torch.sharding import gather_ctx
+
     if isinstance(p, dict):
-        return {k: _cast_params(v, dtype) for k, v in p.items()}
-    if p.dtype == dtype or not p.is_floating_point():
-        return p
-    return p.to(dtype)
+        return {k: _cast_params(v, dtype, cfg, kind,
+                                f"{_path}/{k}" if _path else k)
+                for k, v in p.items()}
+    if p.is_floating_point() and p.dtype != dtype:
+        p = p.to(dtype)
+    if gather_ctx.active() and kind is not None and p.is_floating_point():
+        p = gather_ctx.constrain(_path, p,
+                                 gather_ctx.block_shapes(cfg, kind)[_path])
+    return p
 
 
 def apply_block_train(p, cfg: ModelConfig, kind: str, x,
                       window: Optional[int] = None):
-    """Returns (x, aux): aux is the MoE FFN's load-balance loss, else 0."""
-    p = _cast_params(p, getattr(torch, cfg.dtype))
+    """Returns (x, aux): aux is the MoE FFN's load-balance loss, else 0.
+    On a mesh, the leaves are the rank's shards: FSDP ones are gathered
+    here, and attention and the dense MLP run tensor-parallel where their
+    leaves are split over 'model' (``sharding/tp.py``)."""
+    from repro_torch.sharding import tp
+    p = _cast_params(p, getattr(torch, cfg.dtype), cfg, kind)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
     if kind == "attn":
         mix = attention.attend_train(p["mixer"], cfg, h, window=window)
@@ -87,11 +102,22 @@ def apply_block_train(p, cfg: ModelConfig, kind: str, x,
     if "ffn" in p:
         h = layers.apply_norm(p["norm2"], x, cfg.norm_type)
         if cfg.is_moe:
-            y, aux = moe.apply_moe(p["ffn"], cfg, h)
+            # routed over the global batch, as the reference's (on a mesh
+            # whose batch axes split the rows, ``sharding/tp.py``)
+            y, aux = moe.apply_moe(p["ffn"], cfg, tp.gather_batch(h))
+            y = tp.batch_rows(y, h.shape[0])
         else:
-            y = layers.apply_mlp(p["ffn"], h, cfg.mlp_type)
+            y = layers.apply_mlp(p["ffn"], h, cfg.mlp_type,
+                                 tp_split=_mlp_split(p["ffn"], cfg))
         x = x + y
     return x, aux
+
+
+def _mlp_split(p, cfg: ModelConfig) -> bool:
+    """Whether the dense MLP's hidden dim is split over 'model'."""
+    from repro_torch.sharding import tp
+    w = p["wg"] if "wg" in p else p["wi"]
+    return tp.split(w.shape[1], cfg.d_ff)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -146,7 +172,7 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 def apply_block_decode(p, cfg: ModelConfig, kind: str, x, cache, pos: int):
     """One block, one token for every row at position ``pos``: (x, cache),
     the cache written in place."""
-    p = _cast_params(p, getattr(torch, cfg.dtype))
+    p = _cast_params(p, getattr(torch, cfg.dtype), cfg, kind)
     h = layers.apply_norm(p["norm1"], x, cfg.norm_type)
     if kind == "attn":
         mix, cache = attention.attend_decode(p["mixer"], cfg, h, cache, pos)

@@ -1,5 +1,6 @@
-"""The LM epoch runner of the port — ``repro/train/step.py``'s
-``make_epoch_runner`` with ``backend="vmap"`` and its helpers.
+"""The LM step factories of the port — ``repro/train/step.py``: the
+epoch runner ``make_epoch_runner`` (``backend="vmap"`` and ``"spmd"``),
+the per-step ``make_train_step`` on a process mesh, and their helpers.
 
 The CentralVR worker model: W worker copies of the model, each taking
 local steps on its own shard of the finite sum, and at the end of every
@@ -31,12 +32,27 @@ per step. The loss is the model's: next-token cross-entropy plus the
 MoE load-balance loss, on the text tokens alone (the reference's runner
 passes no frontend embeddings either).
 
+``make_train_step`` is one step on a ``launch.mesh.ProcessMesh`` (the
+reference's, under GSPMD, on a ``jax.sharding.Mesh``). Each rank holds
+its local shards of every leaf (``sharding/specs.py``: FSDP over 'data'
+unless ``dp_replicated``, tensor parallelism over 'model') as flat
+(W_local, N_local) buffers over a :class:`ShardedLayout`, so K1 stays one
+launch a step, over the rank's shard. The FSDP leaves are gathered where
+the blocks use them (``sharding/gather_ctx.py``) and their gradients
+reduce-scattered back; the rest of the gradient is all-reduced over the
+batch axes, and the loss is the global-batch mean. CentralVR workers on
+the mesh's 'data' (or 'pod') axis are averaged over those axes at every
+epoch boundary (Algorithm 2, lines 16-18). Collectives are explicit, in
+the open (``core/spmd.py``), not PyTorch's FSDP or DTensor wrappers: the
+trainer's state is the flat buffers the VR step updates in place.
+
 ``make_serve_step`` is the reference's serving pair: one lockstep decode
 step and the prefill's last-position logits.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -145,23 +161,43 @@ def _local_grads(params_row, layout, cfg: ModelConfig, tcfg: TrainConfig,
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
                      generator: Optional[torch.Generator] = None,
-                     params=None, device=None) -> TrainState:
+                     params=None, device=None, mesh=None,
+                     vr_workers: str = "none") -> TrainState:
     """Fresh state of W identical workers: the params come from ``params``
     (a tree in the port's layout, e.g. ``convert.lm_params_from_jax``) or
     are drawn from ``generator`` (default: seeded with ``tcfg.seed`` on
-    ``device``)."""
+    ``device``). On ``device="meta"`` nothing is allocated or drawn.
+
+    With ``mesh`` (a ``launch.mesh.ProcessMesh``), the state of this
+    rank in ``make_train_step(cfg, tcfg, mesh, vr_workers)``: its local
+    shards (W is then the run's worker count, of which the rank holds its
+    own when the workers lie on mesh axes). Each full leaf is drawn (or
+    taken from ``params``) one at a time and only the rank's shard kept,
+    so the params equal the unsharded ones and a rank's peak is its
+    shards plus one leaf."""
     from repro_torch.kernels import resolve_device
+    if mesh is not None:
+        pl = placement(cfg, tcfg, mesh, vr_workers, W)
+        device = mesh.device if device is None else device
+        if torch.device(device) != mesh.device:
+            raise ValueError(f"init_train_state: device={device!r}, but "
+                             f"this rank runs on {mesh.device}")
+        layout, W = pl.layout, pl.local_workers
+    else:
+        layout = model.ParamLayout(cfg)
     device = resolve_device(device, "repro_torch.train")
-    layout = model.ParamLayout(cfg)
     flat = torch.empty((W, layout.n), dtype=getattr(torch, cfg.param_dtype),
                        device=device)
-    if params is not None:
+    if device.type == "meta":
+        pass
+    elif params is not None:
         layout.load_(flat[0], params)
     else:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(tcfg.seed)
         layout.init_(flat[0], generator)
-    flat[1:] = flat[0]
+    if device.type != "meta":
+        flat[1:] = flat[0]
     opt = optimizers.make(tcfg.optimizer, tcfg.learning_rate,
                           tcfg.weight_decay)
     vr = (vr_wrapper.init_vr(tcfg.vr, flat, tcfg.vr_table_size)
@@ -213,6 +249,64 @@ def _check_kernel_shapes(cfg: ModelConfig):
     if "ssm" in kinds:
         ssd_kernel.check_supported(cfg.ssm_chunk, cfg.ssm_state,
                                    cfg.ssm_head_dim)
+
+
+def _make_per_worker(cfg: ModelConfig, tcfg: TrainConfig, fuse_on: bool,
+                     grads=None):
+    """One step of the workers a process holds — gradients, then the VR
+    correction and the optimizer, or with ``fuse_on`` and SGD the one K1
+    launch over all of them — shared by the epoch runner and
+    ``make_train_step``, as the reference's ``_make_per_worker`` is: the
+    execution models differ, the math must not.
+
+    ``per_worker(state, toks, idx) -> loss``: ``toks`` (W_local, A, mb,
+    S), ``idx`` the step's table row; ``state`` is updated in place.
+    ``grads(row, layout, toks, out) -> loss`` writes one worker's gradient
+    into ``out`` (default ``_local_grads``; the sharded step's adds its
+    reductions over the mesh)."""
+    M = tcfg.vr_table_size
+    mode = tcfg.vr
+    opt = optimizers.make(tcfg.optimizer, tcfg.learning_rate,
+                          tcfg.weight_decay)
+    fuse_vr = fuse_on and mode != "none" and tcfg.optimizer == "sgd"
+    if grads is None:
+        def grads(row, layout, toks, out):
+            return _local_grads(row, layout, cfg, tcfg, toks, out)
+
+    def per_worker(state: TrainState, toks, idx: int):
+        ctx = kernel_ctx.scope(True) if fuse_on else contextlib.nullcontext()
+        vr = state.vr_state
+        with ctx:
+            losses = []
+            for w in range(state.params.shape[0]):
+                losses.append(grads(state.params[w], state.layout, toks[w],
+                                    state.grad[w]))
+                if mode == "svrg":
+                    grads(vr.snapshot[w], state.layout, toks[w],
+                          state.grad_snap[w])
+        # the table row that ``g`` replaces is the next step's accumulator
+        # when the row is rebound to ``g`` (float32 rows); a bfloat16 row
+        # takes a rounded copy of ``g`` and the accumulator stays
+        spare = vr.table[idx] if vr is not None and vr.table else None
+        if fuse_vr:
+            vr_wrapper.apply(mode, vr, state.grad, M, lr=tcfg.learning_rate,
+                             g_snap=state.grad_snap, params=state.params,
+                             idx=idx)
+        else:
+            if mode != "none":
+                v, _ = vr_wrapper.correct(mode, vr, state.grad, M,
+                                          g_snap=state.grad_snap,
+                                          params=state.params, idx=idx)
+            else:
+                v = state.grad
+            updates, state.opt_state = opt.update(v, state.opt_state,
+                                                  state.params)
+            optimizers.apply_updates(state.params, updates)
+        if spare is not None and vr.table[idx] is not spare:
+            state.grad = spare
+        return torch.stack(losses).mean()
+
+    return per_worker
 
 
 def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
@@ -305,43 +399,7 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
         tokens = tokens[group.rank:group.rank + 1]
     nw = 1 if spmd_run else W
 
-    opt = optimizers.make(tcfg.optimizer, tcfg.learning_rate,
-                          tcfg.weight_decay)
-    fuse_vr = fuse_on and mode != "none" and tcfg.optimizer == "sgd"
-
-    def train_step(state: TrainState, toks, idx: int):
-        ctx = kernel_ctx.scope(True) if fuse_on else contextlib.nullcontext()
-        vr = state.vr_state
-        with ctx:
-            losses = []
-            for w in range(nw):
-                losses.append(_local_grads(state.params[w], state.layout,
-                                           cfg, tcfg, toks[w],
-                                           state.grad[w]))
-                if mode == "svrg":
-                    _local_grads(vr.snapshot[w], state.layout, cfg, tcfg,
-                                 toks[w], state.grad_snap[w])
-        # the table row that ``g`` replaces is the next step's accumulator
-        # when the row is rebound to ``g`` (float32 rows); a bfloat16 row
-        # takes a rounded copy of ``g`` and the accumulator stays
-        spare = vr.table[idx] if vr is not None and vr.table else None
-        if fuse_vr:
-            vr_wrapper.apply(mode, vr, state.grad, M, lr=tcfg.learning_rate,
-                             g_snap=state.grad_snap, params=state.params,
-                             idx=idx)
-        else:
-            if mode != "none":
-                v, _ = vr_wrapper.correct(mode, vr, state.grad, M,
-                                          g_snap=state.grad_snap,
-                                          params=state.params, idx=idx)
-            else:
-                v = state.grad
-            updates, state.opt_state = opt.update(v, state.opt_state,
-                                                  state.params)
-            optimizers.apply_updates(state.params, updates)
-        if spare is not None and vr.table[idx] is not spare:
-            state.grad = spare
-        return torch.stack(losses).mean()
+    train_step = _make_per_worker(cfg, tcfg, fuse_on)
 
     def run_epoch(state: TrainState):
         if state.step % E:
@@ -368,6 +426,448 @@ def make_epoch_runner(cfg: ModelConfig, tcfg: TrainConfig, W: int, *,
         return state, losses
 
     return run_epoch, meta
+
+
+# ---------------------------------------------------------------------------
+# The per-step runtime on a process mesh
+# ---------------------------------------------------------------------------
+
+def _leaf_paths(tree, prefix=""):
+    """The path string of each leaf of a layout tree, by leaf number."""
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            out.update(_leaf_paths(v, path))
+        else:
+            out[v] = path
+    return out
+
+
+class ShardedLayout(model.ParamLayout):
+    """A :class:`models.model.ParamLayout` over one mesh position's local
+    shards: each leaf's spec (``sharding/specs.py``; FSDP over 'data'
+    when ``fsdp``, tensor parallel over 'model', an axis that does not
+    divide its dim dropped), its slice of the full leaf and its local
+    shape, laid out in the full layout's leaf order. ``axis_names`` /
+    ``shape`` are the mesh's, ``coords`` the position's."""
+
+    def __init__(self, cfg: ModelConfig, axis_names, shape, coords, *,
+                 fsdp: bool):
+        from repro_torch.sharding import specs
+        full = model.ParamLayout(cfg)
+        self.full = full
+        self.tree, self.inits = full.tree, full.inits
+        self.axis_names, self.mesh_shape = tuple(axis_names), tuple(shape)
+        self.coords = tuple(coords)
+        sizes = dict(zip(self.axis_names, self.mesh_shape))
+        paths = _leaf_paths(full.tree)
+        self.paths = [paths[j] for j in range(len(full.shapes))]
+        self.specs = [specs.leaf_spec(path, shp, cfg,
+                                      fsdp_axis="data" if fsdp else None,
+                                      axis_sizes=sizes)
+                      for path, shp in zip(self.paths, full.shapes)]
+        self.slices = self.slices_at(self.coords)
+        self.shapes, self.offsets, self.n = [], [], 0
+        for sl in self.slices:
+            shp = torch.Size(x.stop - x.start for x in sl)
+            self.shapes.append(shp)
+            self.offsets.append(self.n)
+            self.n += shp.numel()
+
+    def _axes(self, ax):
+        if ax is None:
+            return ()
+        return (ax,) if isinstance(ax, str) else tuple(ax)
+
+    def slices_at(self, coords):
+        """Each leaf's slice of the full leaf at mesh position ``coords``."""
+        out = []
+        for spec, shp in zip(self.specs, self.full.shapes):
+            sl = []
+            for dim, ax in zip(shp, spec):
+                parts, i = 1, 0
+                for a in self._axes(ax):
+                    k = self.axis_names.index(a)
+                    parts *= self.mesh_shape[k]
+                    i = i * self.mesh_shape[k] + coords[k]
+                step = dim // parts
+                sl.append(slice(i * step, (i + 1) * step))
+            out.append(tuple(sl))
+        return out
+
+    def init_(self, flat: torch.Tensor, generator: torch.Generator):
+        """The rank's shards of the params the full layout draws from
+        ``generator``: each full leaf drawn in layout order, its shard
+        kept."""
+        for view, shp, init, sl in zip(self.leaf_views(flat),
+                                       self.full.shapes, self.inits,
+                                       self.slices):
+            full = torch.empty(shp, dtype=flat.dtype, device=flat.device)
+            view.copy_(model.fill_(full, init, generator)[sl])
+        return flat
+
+    def load_(self, flat: torch.Tensor, params):
+        """The rank's shards of a full params tree."""
+        views = self.leaf_views(flat)
+
+        def put(j, value):
+            value = torch.as_tensor(value)
+            if value.shape != self.full.shapes[j]:
+                raise ValueError(f"param {j}: shape {tuple(value.shape)}, "
+                                 f"layout has {tuple(self.full.shapes[j])}")
+            views[j].copy_(value[self.slices[j]])
+        model.tree_zip(put, self.tree, params)
+        return flat
+
+    def sharded_over(self, axis: str):
+        """Leaf numbers whose spec splits them over ``axis``."""
+        return [j for j, spec in enumerate(self.specs)
+                if any(axis in self._axes(a) for a in spec)]
+
+    def scatter_into(self, full_flat: torch.Tensor, local: torch.Tensor,
+                     coords):
+        """Write the local flat buffer of mesh position ``coords`` into its
+        place in the full flat buffer (N,)."""
+        fviews = self.full.leaf_views(full_flat)
+        for j, sl in enumerate(self.slices_at(coords)):
+            shp = torch.Size(x.stop - x.start for x in sl)
+            o = self.offsets[j]
+            fviews[j][sl] = local[o:o + shp.numel()].view(shp)
+        return full_flat
+
+
+def _ranges(layout, leaves):
+    """The (offset, length) runs of ``leaves`` in the flat buffer, with
+    adjacent runs merged."""
+    runs = []
+    for j in sorted(leaves):
+        o, n = layout.offsets[j], layout.shapes[j].numel()
+        if runs and runs[-1][0] + runs[-1][1] == o:
+            runs[-1][1] += n
+        else:
+            runs.append([o, n])
+    return [tuple(r) for r in runs]
+
+
+@dataclass
+class Placement:
+    """Where a run of ``make_train_step`` puts its state on the mesh, and
+    the collectives that follow from it: ``workers`` W in all,
+    ``local_workers`` on this rank, the axes they lie on, the batch axes
+    (the data axes that are no worker axis, which split every
+    microbatch's rows), and whether the FSDP gather is engaged."""
+
+    mesh: Any
+    layout: Any
+    workers: int
+    local_workers: int
+    worker_axes: tuple
+    batch_axes: tuple
+    gather: bool
+    sharded: bool
+
+    def scope(self, cfg: ModelConfig, split_rows: bool = True):
+        """The step's forward and backward context: the weight gather over
+        'data' and tensor parallelism over 'model', where they apply.
+        ``split_rows``: the batch's rows are split over the batch axes
+        (False for a batch every rank holds whole, the held-out eval's)."""
+        from repro_torch.launch import mesh as meshlib
+        from repro_torch.sharding import gather_ctx, tp
+        stack = contextlib.ExitStack()
+        if self.sharded:
+            if self.gather:
+                stack.enter_context(gather_ctx.scope(
+                    self.mesh, cfg, meshlib.mesh_axis_sizes(self.mesh)))
+            stack.enter_context(tp.scope(
+                self.mesh, cfg, self.batch_axes if split_rows else ()))
+        return stack
+
+    @functools.cached_property
+    def _reductions(self):
+        """(axes, runs): the leaves whose gradient the backward already
+        summed over 'data' (FSDP's reduce-scatter) are summed over the
+        other batch axes, the rest over all of them."""
+        lay = self.layout
+        fsdp = set(lay.sharded_over("data")) if self.gather else set()
+        rest = set(range(len(lay.shapes))) - fsdp
+        return [(tuple(a for a in self.batch_axes if a != "data"),
+                 _ranges(lay, fsdp)),
+                (self.batch_axes, _ranges(lay, rest))]
+
+    def reduce_grads_(self, out: torch.Tensor) -> torch.Tensor:
+        """One worker's local gradient (N_local,) made the global-batch
+        mean's: summed over the batch axes, divided by their size."""
+        from repro_torch.core import spmd
+        count = self.mesh.count(self.batch_axes) if self.sharded else 1
+        if count == 1:
+            return out
+        for axes, runs in self._reductions:
+            g = self.mesh.group(axes)
+            if g.world == 1 or not runs:
+                continue
+            if runs == [(0, out.numel())]:
+                spmd.psum_(out, g)
+                continue
+            buf = torch.cat([out[o:o + n] for o, n in runs])
+            spmd.psum_(buf, g)
+            i = 0
+            for o, n in runs:
+                out[o:o + n].copy_(buf[i:i + n])
+                i += n
+        return out.div_(count)
+
+    def local_tokens(self, tokens, device, accum: int, mb: int, seq: int):
+        """This rank's (W_local, A, mb_local, S) slice of the global token
+        block: (W, A, mb, S) when W > 1, else (A, mb, S)."""
+        if not isinstance(tokens, torch.Tensor):
+            tokens = torch.from_numpy(np.asarray(tokens))
+        W = self.workers
+        want = ((W,) if W > 1 else ()) + (accum, mb, seq)
+        if tuple(tokens.shape) != want:
+            raise ValueError(f"tokens has shape {tuple(tokens.shape)}, the "
+                             f"step needs {want}")
+        toks = tokens.to(device, torch.int64)
+        if W == 1:
+            toks = toks[None]
+        if self.local_workers < W:
+            w = self.mesh.index(self.worker_axes)
+            toks = toks[w:w + 1]
+        if self.sharded:
+            B = self.mesh.count(self.batch_axes)
+            if mb % B:
+                raise ValueError(
+                    f"microbatch {mb} does not split over the batch axes "
+                    f"{self.batch_axes} ({B} ranks); every rank takes the "
+                    "same number of rows")
+            b, n = self.mesh.index(self.batch_axes), mb // B
+            toks = toks[:, :, b * n:(b + 1) * n]
+        return toks
+
+    def worker_mean_(self, buf: torch.Tensor) -> torch.Tensor:
+        """Algorithm 2's central average of ``buf`` (W_local, N_local) over
+        the workers, in place."""
+        if self.local_workers > 1:
+            return worker_average(buf)
+        g = self.mesh.group(self.worker_axes)
+        return group_average_(buf, g) if g.world > 1 else buf
+
+    def loss_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The step's loss averaged over the data axes' ranks (workers and
+        batch rows): the global mean."""
+        from repro_torch.core import spmd
+        g = self.mesh.group(("pod", "data")) if self.sharded else None
+        if g is None or g.world == 1:
+            return loss
+        return spmd.psum_(loss.reshape(1).clone(), g)[0] / g.world
+
+    def gather_full(self, buf: torch.Tensor) -> torch.Tensor:
+        """The full (W, N) buffer on the CPU from every rank's (W_local,
+        N_local) ``buf``; every rank calls this."""
+        from repro_torch.core import spmd
+        from repro_torch.launch import mesh as meshlib
+        if not self.sharded or self.mesh.size == 1:
+            return buf.detach().cpu()
+        mesh, lay = self.mesh, self.layout
+        parts = spmd.all_gather(buf.contiguous(), mesh.group(
+            mesh.axis_names)).cpu()
+        full = torch.zeros((self.workers, lay.full.n), dtype=buf.dtype)
+        for q in range(mesh.size):
+            coords = meshlib.unravel(q, mesh.shape)
+            if self.local_workers < self.workers:
+                w = 0
+                for a in self.worker_axes:
+                    k = mesh.axis_names.index(a)
+                    w = w * mesh.shape[k] + coords[k]
+                rows = [(w, 0)]
+            else:
+                rows = [(w, w) for w in range(self.workers)]
+            for w, lw in rows:
+                lay.scatter_into(full[w], parts[q, lw], coords)
+        return full
+
+
+def placement(cfg: ModelConfig, tcfg: TrainConfig, mesh,
+              vr_workers: str = "none", W: Optional[int] = None, *,
+              workers: Optional[int] = None) -> Placement:
+    """The :class:`Placement` of ``make_train_step(cfg, tcfg, mesh,
+    vr_workers, workers=workers)``. ``W``, when given, must be its worker
+    count. Raises for what the port does not run: a MoE arch with a
+    'model' axis above one (its expert-parallel rules, ROADMAP.md queue
+    1, item 16), and workers on a 'data' axis above one without
+    ``dp_replicated`` (each such worker holds a whole model copy, which
+    the reference's specs cannot place either)."""
+    from repro_torch.launch import mesh as meshlib
+    mode = tcfg.vr
+    if workers is not None:
+        # W stacked copies on the rank's device, replicated: the epoch
+        # runner's layout, no collectives
+        pl = Placement(mesh, model.ParamLayout(cfg), workers, workers, (),
+                       (), False, False)
+    else:
+        sizes = meshlib.mesh_axis_sizes(mesh)
+        w_axes = (meshlib.worker_axes(mesh, vr_workers)
+                  if mode != "none" else ())
+        n = (meshlib.worker_count(mesh, vr_workers) if mode != "none"
+             else 1)
+        if cfg.is_moe and sizes.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: a MoE arch on a 'model' axis of "
+                f"{sizes['model']} needs the expert-parallel placement "
+                "(its experts and router over 'model'), which the port "
+                "does not run yet (ROADMAP.md queue 1, item 16); use a "
+                "mesh with model=1 (FSDP only)")
+        if ("data" in w_axes and sizes.get("data", 1) > 1
+                and not tcfg.dp_replicated):
+            raise ValueError(
+                "vr_workers='data' puts one CentralVR worker, a whole model "
+                "copy, on each 'data' group: pass dp_replicated=True (FSDP "
+                "over 'data' would shard the workers' own axis)")
+        gather = (not tcfg.dp_replicated and "data" in mesh.axis_names
+                  and mesh.size > 1 and "data" not in w_axes)
+        batch = tuple(a for a in ("pod", "data")
+                      if a in mesh.axis_names and a not in w_axes)
+        layout = ShardedLayout(cfg, mesh.axis_names, mesh.shape, mesh.coords,
+                               fsdp=not tcfg.dp_replicated)
+        pl = Placement(mesh, layout, n, 1 if w_axes else n, w_axes, batch,
+                       gather, True)
+    if W is not None and W != pl.workers:
+        raise ValueError(f"W={W}, but this placement holds {pl.workers} "
+                         f"worker(s) (vr_workers={vr_workers!r})")
+    return pl
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
+                    vr_workers: str = "none", *,
+                    workers: Optional[int] = None, fused=False,
+                    device=None):
+    """One training step on a process mesh: returns ``(train_step(state,
+    tokens, idx=None) -> (state, {"loss"}), meta)``, as the reference's.
+
+    W comes from the mesh (``launch.mesh.worker_count(mesh,
+    vr_workers)`` when ``tcfg.vr != "none"``, else 1), or from the
+    explicit ``workers``: W stacked copies on the rank's device, as the
+    epoch runner's ``backend="vmap"`` holds them (nothing sharded, no
+    collective). ``mesh`` defaults to ``launch.mesh.make_test_mesh()``;
+    every rank of it calls this and every step with the same arguments.
+
+    ``state`` comes from ``init_train_state(cfg, tcfg, W, mesh=mesh,
+    vr_workers=vr_workers)`` (explicit workers: without ``mesh``) and is
+    updated in place. ``tokens`` is the GLOBAL batch, (W, A, mb, S) when
+    W > 1 else (A, mb, S): the rank takes its worker's rows and its share
+    of each microbatch along the batch axes. ``idx`` is the table row
+    (default ``state.step % M``). The loss is the mean over every worker
+    and row. At every epoch boundary (step + 1 a multiple of M*K) the
+    params and gbar are averaged over the workers.
+
+    The FSDP weight gather (``sharding/gather_ctx.py``) engages where the
+    reference's does: no explicit ``workers``, not ``dp_replicated``, a
+    'data' axis on a mesh of more than one rank, and 'data' no worker
+    axis. ``fused`` and ``device`` as in ``make_epoch_runner``; ``device``
+    must be the mesh's. ``meta["placement"]`` is the :class:`Placement`.
+    """
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as meshlib
+
+    if mesh is None:
+        mesh = meshlib.make_test_mesh(device=device)
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"make_train_step: device={device!r}, but this "
+                         f"rank runs on {mesh.device}")
+    device = mesh.device
+    fuse_on = kernels.resolve_fused(fused, device)
+    if (fused is True and tcfg.vr != "none"
+            and tcfg.optimizer != "sgd"):
+        raise ValueError(
+            f"fused=True: the fused VR step bakes a plain SGD update, but "
+            f"optimizer={tcfg.optimizer!r}; use optimizer='sgd' or "
+            "fused='auto' (which fuses only the model forward)")
+    if fuse_on and device.type == "cuda":
+        _check_kernel_shapes(cfg)
+    pl = placement(cfg, tcfg, mesh, vr_workers, workers=workers)
+    W, mode, M = pl.workers, tcfg.vr, tcfg.vr_table_size
+    E = M * tcfg.local_epoch
+    accum, mb = batch_geometry(tcfg, W)
+
+    def grads(row, layout, toks, out):
+        with pl.scope(cfg):
+            loss = _local_grads(row, layout, cfg, tcfg, toks, out)
+        pl.reduce_grads_(out)
+        return loss
+
+    per_worker = _make_per_worker(cfg, tcfg, fuse_on,
+                                  grads if pl.sharded else None)
+
+    def train_step(state: TrainState, tokens, idx: Optional[int] = None):
+        if state.params.shape[0] != pl.local_workers:
+            raise ValueError(
+                f"the state holds {state.params.shape[0]} workers, this "
+                f"step runs {pl.local_workers} on this rank")
+        toks = pl.local_tokens(tokens, device, accum, mb, tcfg.seq_len)
+        loss = per_worker(state, toks, state.step % M if idx is None
+                          else idx)
+        if W > 1 and (state.step + 1) % E == 0:
+            # average x and gbar across the workers; tables and
+            # accumulators stay local
+            pl.worker_mean_(state.params)
+            if mode != "none":
+                pl.worker_mean_(state.vr_state.gbar)
+        state.step += 1
+        return state, {"loss": pl.loss_mean(loss)}
+
+    meta = {"workers": W, "comm_every": E, "accum": accum,
+            "microbatch": mb, "local_workers": pl.local_workers,
+            "grads_per_step": vr_wrapper.grads_per_step(mode),
+            "vr_storage_mult": vr_wrapper.storage_multiplier(mode, M),
+            "fused": fuse_on, "device": str(device), "mesh": mesh,
+            "placement": pl}
+    return train_step, meta
+
+
+def eval_shape_train_state(cfg: ModelConfig, tcfg: TrainConfig, W: int):
+    """The state's shapes and dtypes on ``torch.device("meta")``: nothing
+    allocated (the dry run's)."""
+    return init_train_state(cfg, tcfg, W, device="meta")
+
+
+def state_shardings(state_shapes: TrainState, cfg: ModelConfig,
+                    tcfg: TrainConfig, mesh, vr_workers: str):
+    """The spec of every param leaf of ``state_shapes`` (from
+    ``eval_shape_train_state``) on ``mesh``, as a params tree: a leading
+    worker dim on the worker axes when W > 1. Every param-shaped buffer
+    of the state (VR table rows, gbar, gtilde, snapshot, optimizer
+    moments, the gradient) is placed as the params are."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.sharding import specs
+    w_axes = (meshlib.worker_axes(mesh, vr_workers)
+              if tcfg.vr != "none" else ())
+    W = state_shapes.params.shape[0]
+    layout = state_shapes.layout
+    lead = (W,) if W > 1 else ()
+    shapes = model.tree_map(
+        lambda j: torch.empty(lead + tuple(layout.shapes[j]), device="meta"),
+        layout.tree)
+    return specs.tree_specs(shapes, cfg, fsdp=not tcfg.dp_replicated,
+                            worker_axes=w_axes,
+                            axis_sizes=meshlib.mesh_axis_sizes(mesh))
+
+
+def batch_sharding(mesh, tcfg: TrainConfig, vr_workers: str, *,
+                   with_fe=False):
+    """The spec of the step's global token block (and of frontend
+    embeddings with ``with_fe``)."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.sharding import specs
+    w_axes = (meshlib.worker_axes(mesh, vr_workers)
+              if tcfg.vr != "none" else ())
+    data_axes = tuple(a for a in ("pod", "data")
+                      if a in mesh.axis_names and a not in w_axes)
+    tok = specs.batch_specs(w_axes, data_axes)
+    out = {"tokens": tok}
+    if with_fe:
+        out["fe"] = tuple(tok) + (None,)
+    return out
 
 
 # ---------------------------------------------------------------------------

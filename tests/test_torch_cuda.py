@@ -788,3 +788,74 @@ def test_decode_step_on_the_card_matches_the_cpu(device):
             scale = max(1.0, want.abs().max().item())
             torch.testing.assert_close(got.cpu(), want, rtol=3e-5,
                                        atol=1e-6 * scale)
+
+
+def test_train_step_on_the_test_mesh_equals_the_epoch_runner(device):
+    """``make_train_step`` on the (1, 1) mesh of one rank on the card runs
+    K1, K2 and K3 in the epoch runner's order: four steps equal two epochs
+    bit for bit, losses and params."""
+    import dataclasses
+
+    from repro_torch.config import TrainConfig, get_arch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.train import step as tstep
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(), num_layers=2)
+    tcfg = TrainConfig(seq_len=128, global_batch=2, microbatch=1,
+                       learning_rate=0.1, optimizer="sgd", vr="centralvr",
+                       vr_table_size=2, local_epoch=1)
+    run, _ = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True)
+    a = tstep.init_train_state(cfg, tcfg, 1)
+    losses = []
+    for _ in range(2):
+        a, ls = run(a)
+        losses += ls.tolist()
+    m = meshlib.make_test_mesh()
+    assert (m.shape, m.device.type) == ((1, 1), "cuda")
+    step, meta = tstep.make_train_step(cfg, tcfg, m, fused=True)
+    b = tstep.init_train_state(cfg, tcfg, 1, mesh=m)
+    from repro_torch.data import synthetic
+    toks = synthetic.epoch_tokens(cfg, tcfg.seed, workers=1, steps=2,
+                                  accum=2, microbatch=1, seq=128,
+                                  table_size=2)
+    before = vr_kernel.launches
+    got = []
+    for s in range(4):
+        b, out = step(b, toks[0, s % 2])
+        got.append(float(out["loss"]))
+    assert vr_kernel.launches == before + 4
+    assert got == losses
+    assert torch.equal(a.params, b.params)
+
+
+def _constrain_rank(group):
+    """In a rank of two sharing the card over gloo: ``gather_ctx
+    .constrain`` of a bf16 shard on CUDA, forward and backward, against
+    the plain gather and sum on this rank."""
+    from repro_torch.config import MeshConfig, get_arch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.sharding import gather_ctx
+
+    cfg = get_arch("qwen2-7b").reduced()
+    m = meshlib.make_mesh(MeshConfig((2, 1), ("data", "model")))
+    gen = torch.Generator().manual_seed(0)
+    full = torch.randn(cfg.d_model, cfg.d_ff, generator=gen)
+    cts = [torch.randn(cfg.d_model, cfg.d_ff, generator=gen)
+           for _ in range(2)]
+    rows = slice(m.rank * cfg.d_model // 2, (m.rank + 1) * cfg.d_model // 2)
+    local = full[rows].to(m.device, torch.bfloat16).requires_grad_()
+    with gather_ctx.scope(m, cfg, meshlib.mesh_axis_sizes(m)):
+        got = gather_ctx.constrain("ffn/wg", local, tuple(full.shape))
+        got.backward(cts[m.rank].to(m.device, torch.bfloat16))
+    want = (cts[0].bfloat16() + cts[1].bfloat16())[rows]
+    return (m.transport, bool(got.is_cuda),
+            torch.equal(got.detach().cpu(), full.bfloat16()),
+            torch.equal(local.grad.cpu(), want), m.collectives)
+
+
+def test_constrain_gathers_cuda_shards_over_gloo(device):
+    from repro_torch.launch import mesh as meshlib
+
+    for transport, on_card, fwd, bwd, n in meshlib.spawn_workers(
+            2, _constrain_rank, transport="gloo", timeout=300):
+        assert transport == "gloo" and on_card and fwd and bwd and n == 2

@@ -600,9 +600,15 @@ def test_launcher_runs_on_the_cpu_and_refuses_unported_parts(capsys):
             "--device", "cpu"]
     launch_train.main(base)
     assert "done: 4 steps" in capsys.readouterr().out
-    for extra, item in ((["--runtime", "host"], "item 13"),
-                        (["--mesh", "production"], "item 13")):
-        with pytest.raises(SystemExit, match=item):
+    # the per-step runtime is ported: it runs, and the refusals left are
+    # the reference's and the production mesh's world
+    launch_train.main(base + ["--runtime", "host"])
+    assert "done: 4 steps" in capsys.readouterr().out
+    for extra, why in ((["--mesh", "production"], "pass --runtime host"),
+                       (["--workers", "data"], "pass --runtime host"),
+                       (["--runtime", "host", "--mesh", "production"],
+                        "needs a world of 256 ranks")):
+        with pytest.raises(SystemExit, match=why):
             launch_train.main(base + extra)
 
 
