@@ -65,7 +65,7 @@ Phases, each of which raises on failure:
   5. the rest of the convex family through ``repro_torch.solve``, each
      VR run fused and then unfused on the same draws: the paper's Fig. 1
      panel on ``toy-logistic`` (n 5000, d 20; CentralVR, SVRG with
-     snapshot last, SAGA, SGD; 10 epochs) and §6.2's
+     snapshot last, SAGA, SGD; 5 epochs) and §6.2's
      ``dist-toy-logistic`` at p=8 (CentralVR-Async round-robin, 2 rounds;
      D-SVRG, tau 2*ns, 3 rounds; D-SAGA with instant and with stale
      fetch, tau 100, 20 rounds; distributed SGD, EASGD and PS-SVRG, 2
@@ -234,8 +234,8 @@ Phases, each of which raises on failure:
      requests (poisson arrivals, gap 4, prompts cycled over 128 / 256 /
      512 tokens, 64 new tokens cycled down to 16), which forces
      retirements and block reuse; the same trace on the dense oracle
-     sharing the cast params; the 3 of its requests with the fewest new
-     tokens served alone; a burst of
+     sharing the cast params; the one of its requests with the fewest
+     new tokens served alone; a burst of
      4 requests (prompt 128, 16 new) on the engine and on
      ``run_host_loop`` at width 4, in bfloat16 (their ids compared and
      printed) and in float32 compute (gated). Gates: paged ids equal the
@@ -257,7 +257,19 @@ Phases, each of which raises on failure:
      (launches, one ``torch.profiler`` pass) and byte bound (weights and
      the gathered KV over 3.35 TB/s) with the share reached, first-call
      seconds per program, peak memory, KV-pool bytes and blocks reused;
-     ``--profile`` adds the decode step's busy share and top operations;
+     ``--profile`` adds the decode step's busy share and top operations.
+     Lane 7b, tensor-parallel decode: Qwen2-7B at its full width and
+     depth on the (data 1, model 2) mesh of 2 ranks sharing the card
+     over gloo (``ServeEngine(mesh=...)``; each rank draws its shards
+     from seed 0 one leaf at a time and casts them once), phase 7's trace
+     in bfloat16 and its burst in float32. Gates: the float32 burst's ids
+     equal phase 7's float32 engine's, its prefill and every decode
+     step's logits within 2**-7 of their largest magnitude; every
+     request finished and every block free on both ranks; both ranks'
+     ids equal; no kernel launched. Printed: how many bf16 requests
+     equal phase 7's ids, the decode step's device and wall ms, device
+     ops, gloo bytes and collectives a rank, a 128-token chunk's ms,
+     tokens/s, latency, peak memory a rank;
   8. the per-step runtime and the meshes (``train/host_loop.py``,
      ``make_train_step``, ``sharding/*``): 8a ``host_loop.run_training``
      on ``make_test_mesh()`` (one rank, (1, 1)) at the Qwen2-7B width, 2
@@ -266,15 +278,22 @@ Phases, each of which raises on failure:
      epochs of the epoch runner and one ``make_train_step`` step on its
      state, K1 / K2 / K3 counted per step; 8b the same config on the
      (data 2, model 2) mesh of 4 ranks sharing the card over gloo (FSDP
-     over 'data', tensor parallelism over 'model'), 4 steps, against 8a's
+     over 'data', tensor parallelism over 'model'), 2 steps, against 8a's
      single-device run (losses within 2**-7, the sampled update within
      5% in norm), every rank's K3 on 14 q heads and 2 kv heads, memory a
      rank, wall and gloo bytes and collectives a step; 8c
      ``qwen2-7b.reduced()`` in float32 with CentralVR workers on 'data'
      (W 2, ``dp_replicated``) and TP inside, against the vmap W 2 epoch
      runner (losses and params within LM_TOL), the worker spread above 0
-     after a local step and exactly 0 at each epoch boundary. ``--mesh``
-     runs only the device phase, the build and this phase;
+     after a local step and exactly 0 at each epoch boundary; 8d
+     expert parallelism: qwen3-moe-30b-a3b's width cut to 2 layers
+     (1,868,573,184 params) with 8b's train config, first 3 steps of
+     ``make_train_step`` on the (1, 1) mesh, then 3 on (data 2, model 2)
+     over 4 ranks (FSDP over 'data'; TP and the experts and router
+     columns over 'model') against it by 8b's gates, every rank's K3 on
+     16 q / 2 kv heads, 64 of the 128 experts of each layer a rank, K1
+     once a step a rank. ``--mesh`` runs only the device phase, the
+     build and this phase;
   9. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape; CUDA events for K1 at
@@ -373,6 +392,9 @@ VR_OPS_PER_ELEMENT = 7
 # table' is g itself)
 VR_STREAMS = 7
 ROUNDS = 10
+# the Fig. 1 panel's epochs in phase 5: cut from ROUNDS (their unfused twins
+# took 33 s at 10) to make room for lanes 7b and 8d in the script's time
+TOY_EPOCHS = 5
 # millionsong's rounds in phase 4: cut from ROUNDS so that its unfused twin
 # (81.7-108.5 s at 10 rounds) leaves room for phase 7 in the script's time
 MS_ROUNDS = 3
@@ -382,9 +404,9 @@ L2_BYTES = 50 * 2**20           # H100 L2
 LM_EPOCHS = 2
 LM_TIMING_EPOCHS = 10           # more epochs after the agreement check, timed
 # timed epochs of the slower full-width runs, cut from LM_TIMING_EPOCHS to
-# keep the script in its time: Mamba2-130M (~3 s an epoch fused, ~3.6 s
-# unfused) and phase 6d's two widths
-MAMBA_TIMING_EPOCHS = 4
+# keep the script in its time: Mamba2-130M (~2.4 s an epoch fused, ~2.7 s
+# unfused; 4 before lanes 7b and 8d) and phase 6d's two widths
+MAMBA_TIMING_EPOCHS = 2
 WIDE_TIMING_EPOCHS = 5
 LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
 LOSS_RTOL = 2.0 ** -7           # two bf16 ulps
@@ -503,13 +525,17 @@ def phase_compare(torch, np, vr_kernel, vr_ref, proxops):
 
 def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
     """K2 against its plain version; returns the largest bf16 error at the
-    two main-path shapes."""
-    worst_at = {(1024, 3584): 0.0, (8192, 768): 0.0}
+    main-path shapes (qwen3-moe's d 2048: 2048 rows in lane 8d's (1, 1)
+    run and phase 6d, 1024 on each of 8d's ranks)."""
+    worst_at = {(1024, 3584): 0.0, (8192, 768): 0.0, (2048, 2048): 0.0,
+                (1024, 2048): 0.0}
     g = torch.Generator(device="cuda").manual_seed(0)
     for rows, d, dt, sdt, off in (
             (1024, 3584, torch.bfloat16, torch.bfloat16, 0),
             (1024, 3584, torch.float32, torch.float32, 0),
             (8192, 768, torch.bfloat16, torch.bfloat16, 0),
+            (2048, 2048, torch.bfloat16, torch.bfloat16, 0),
+            (1024, 2048, torch.bfloat16, torch.bfloat16, 0),
             (37, 3584, torch.bfloat16, torch.float32, 0),
             (512, 128, torch.bfloat16, torch.bfloat16, 0),
             (64, 1001, torch.bfloat16, torch.bfloat16, 0),
@@ -536,9 +562,18 @@ def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
 
 
 def phase_compare_flash(torch, fa_kernel, fa_ref):
+    """K3 bf16 against its plain version at the main paths' shapes: the
+    Qwen2 width (28 / 4 heads, and 14 / 2 a rank in lane 8b), qwen3-moe's
+    group of 8 (32 / 4 heads at S 2048 in phase 6d and S 1024 in lane
+    8d's (1, 1) run, 16 / 2 on each of 8d's ranks), and smaller and
+    windowed cases; returns the error at the Qwen2 width."""
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(1)
     for B, S, H, KV, hd, win in ((1, 1024, 28, 4, 128, None),
+                                 (1, 1024, 14, 2, 128, None),
+                                 (1, 1024, 32, 4, 128, None),
+                                 (1, 1024, 16, 2, 128, None),
+                                 (1, 2048, 32, 4, 128, None),
                                  (1, 1024, 28, 4, 128, 200),
                                  (2, 200, 4, 2, 32, None),
                                  (1, 256, 4, 4, 64, None),
@@ -906,7 +941,8 @@ def phase_main_path(torch, kernels):
 def family_runs(torch):
     """Phase 5's runs, the rest of the convex family on the paper's
     settings: the Fig. 1 panel on ``toy-logistic`` (n 5000, d 20),
-    CentralVR against SVRG (snapshot last), SAGA and SGD, 10 epochs each;
+    CentralVR against SVRG (snapshot last), SAGA and SGD, TOY_EPOCHS
+    each;
     and §6.2's ``dist-toy-logistic`` (p 8, 5000 x 1000 per worker):
     CentralVR-Async round-robin (2 rounds), D-SVRG (tau 2*ns, 3 rounds),
     D-SAGA with instant and stale fetch (tau 100, 20 rounds), distributed
@@ -919,7 +955,7 @@ def family_runs(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     toy, dist = PRESETS["toy-logistic"], PRESETS["dist-toy-logistic"]
-    n, E = toy.n, ROUNDS
+    n, E = toy.n, TOY_EPOCHS
     p, ns = dist.workers, dist.n
     tau_dsvrg, tau_dsaga, tau_easgd = 2 * ns, 100, 16
     blocks = max(ns // tau_easgd, 1)
@@ -2757,7 +2793,9 @@ SERVE_TRACE = dict(pattern="poisson", gap=4, prompt_lens=(128, 256, 512),
                    max_new=64, vary_new=True, seed=0)
 SERVE_BURST = dict(pattern="burst", prompt_len=128, max_new=16, seed=1)
 SERVE_BURST_N = 4
-SERVE_ALONE = 3                 # requests served alone: the fewest new tokens
+# requests served alone, the fewest new tokens first: cut from 3 to make room
+# for lane 7b in the script's time
+SERVE_ALONE = 1
 SERVE_TOL = 2.0 ** -7           # engine against legacy, of the largest logit
 K2_BF16_TOL = 1e-2              # K2's bf16 tolerance (phase 3)
 SERVE_TIMED_STEPS = 20          # decode steps timed with CUDA events
@@ -2771,14 +2809,17 @@ def serve_ids(rep):
 
 
 def serve_report_line(label, rep):
-    s = rep.summary()
+    return serve_summary_line(label, rep.summary(), rep.compile_s)
+
+
+def serve_summary_line(label, s, compile_s):
     log(f"[serve] {label}: {s['requests']} requests, {s['steps']} decode "
         f"steps; prefill {s['prefill_tokens']} tokens at "
         f"{s['prefill_tok_s']!r} tok/s; decode {s['decode_tokens']} tokens "
         f"at {s['decode_tok_s']!r} tok/s; latency p50 "
         f"{s['latency_p50_s']!r} s, p95 {s['latency_p95_s']!r} s; wall "
         f"{s['wall_s']!r} s; blocks reused {s['blocks_reused']}; first "
-        f"calls {rep.compile_s}")
+        f"calls {compile_s}")
     return s
 
 
@@ -2816,6 +2857,30 @@ def serve_bytes(torch, eng, lens):
     return sum(sizes), kv
 
 
+def serve_recorded(eng, reqs):
+    """``reqs`` on the engine with each prefill chunk's logits and each
+    decode step's logits of the first SERVE_BURST_N lanes recorded: (the
+    report, {"prefill": [...], "decode": [...]})."""
+    logs = {"prefill": [], "decode": []}
+    prefill, decode = eng._prefill, eng._decode
+
+    def rec_prefill(*a):
+        out = prefill(*a)
+        logs["prefill"].append(out[0].clone())
+        return out
+
+    def rec_decode(*a):
+        out = decode(*a)
+        logs["decode"].append(out[0][:SERVE_BURST_N].clone())
+        return out
+    eng._prefill, eng._decode = rec_prefill, rec_decode
+    try:
+        rep = eng.run(reqs)
+    finally:
+        eng._prefill, eng._decode = prefill, decode
+    return rep, logs
+
+
 def serve_burst(torch, eng, cfg, gate):
     """The burst on the engine with its prefill and decode logits
     recorded, then on ``run_host_loop`` at width 4. With ``gate`` (the
@@ -2834,23 +2899,7 @@ def serve_burst(torch, eng, cfg, gate):
     from repro_torch.train import step as tstep
 
     burst = synthetic_trace(SERVE_BURST_N, **SERVE_BURST)
-    logs = {"prefill": [], "decode": []}
-    prefill, decode = eng._prefill, eng._decode
-
-    def rec_prefill(*a):
-        out = prefill(*a)
-        logs["prefill"].append(out[0].clone())
-        return out
-
-    def rec_decode(*a):
-        out = decode(*a)
-        logs["decode"].append(out[0][:SERVE_BURST_N].clone())
-        return out
-    eng._prefill, eng._decode = rec_prefill, rec_decode
-    try:
-        erep = eng.run(burst)
-    finally:
-        eng._prefill, eng._decode = prefill, decode
+    erep, logs = serve_recorded(eng, burst)
     tag = f"qwen2-7b {cfg.dtype} burst"
     serve_report_line(f"{tag}, engine", erep)
     lrep = run_host_loop(cfg, burst, params=eng.params, width=SERVE_BURST_N,
@@ -2918,7 +2967,8 @@ def serve_burst(torch, eng, cfg, gate):
         raise AssertionError(f"[serve] burst: engine and legacy logits "
                              f"differ by {first_err}, {max(step_errs)}")
     return dict(out, first_logits_err=first_err,
-                decode_logits_err=max(step_errs), ids_compared=far)
+                decode_logits_err=max(step_errs), ids_compared=far,
+                _logs=dict(logs, ids=eids))
 
 
 def serve_time(torch, eng, kernels, profile):
@@ -3101,8 +3151,8 @@ def phase_serve(torch, kernels, profile=False):
     ``kernel_ctx`` (``serve_time``), every pool block free at the end;
     then qwen3-moe-30b-a3b.reduced() on the engine, Mamba2-130M at full
     width and depth and recurrentgemma-2b.reduced() through the legacy
-    loop. Returns the phase's record; its K2 launches under
-    ``launches``."""
+    loop; then lane 7b, tensor-parallel decode (``serve_tp``). Returns
+    the phase's record; its K2 launches under ``launches``."""
     import dataclasses
     import gc
 
@@ -3191,6 +3241,7 @@ def phase_serve(torch, kernels, profile=False):
                       **SERVE_GEO)
     del params
     burst.append(serve_burst(torch, eng, cfg32, gate=True))
+    ref32 = burst[-1].pop("_logs")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3201,6 +3252,9 @@ def phase_serve(torch, kernels, profile=False):
     others.append(serve_legacy_arch(torch,
                                     get_arch("recurrentgemma-2b").reduced(),
                                     "recurrentgemma-2b reduced", 40, 8))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = serve_tp(torch, ids, ref32)
     seconds = time.perf_counter() - t_phase
     log(f"[path] phase 7 (serve) in {seconds:.1f} s")
     return dict(qwen2_7b=dict(params=n_params, layers=cfg.num_layers,
@@ -3208,8 +3262,216 @@ def phase_serve(torch, kernels, profile=False):
                               peak_bytes=peak, compile_s=compile_s,
                               trace=main, dense=drep.summary(), **timing,
                               burst=burst),
-                others=others, seconds=seconds,
+                others=others, tp=tp, seconds=seconds,
                 launches={"rmsnorm": timing["k2_launches"]})
+
+
+# ---------------------------------------------------------------------------
+# Lane 7b: tensor-parallel decode
+# ---------------------------------------------------------------------------
+
+SERVE_TP = 2                    # lane 7b: (data 1, model 2), gloo on one card
+
+
+def serve_tp_time(torch, eng, m):
+    """In a rank of lane 7b: the decode step at SERVE_LENS (CUDA events
+    and the host's wall over SERVE_TIMED_STEPS steps, the step's gloo
+    bytes and collectives, its device ops under ``torch.profiler``) and a
+    128-token prefill chunk (CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.serve import runtime
+
+    ins = serve_decode_inputs(torch, eng.geo, eng.cfg.vocab_size)
+    staged = runtime.stage(eng.device, *ins)
+
+    def step():
+        return eng._decode(eng.params, eng.cache, *staged)[0]
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    c0, b0 = m.collectives, m.carried_bytes
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SERVE_TIMED_STEPS):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / SERVE_TIMED_STEPS
+    decode_ms = start.elapsed_time(end) / SERVE_TIMED_STEPS
+    coll = (m.collectives - c0) / SERVE_TIMED_STEPS
+    carried = (m.carried_bytes - b0) / SERVE_TIMED_STEPS
+    row = staged[3][0]
+    chunk = torch.arange(128, device=eng.device)
+
+    def fill():
+        return eng._prefill(eng.params, eng.cache, chunk, 0, 128, 0, row)[0]
+    fill()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(SERVE_TIMED_CHUNKS):
+        fill()
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end) / SERVE_TIMED_CHUNKS
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0)
+    return dict(decode_ms=decode_ms, decode_wall_ms=wall_ms,
+                prefill_chunk_ms=prefill_ms, launches_per_step=launches,
+                collectives_per_step=coll, carried_bytes_per_step=carried)
+
+
+def serve_tp_rank(group):
+    """In a rank of lane 7b: Qwen2-7B at its full width and depth on the
+    (data 1, model 2) mesh, the rank's shards drawn from seed 0 on the
+    card one leaf at a time. The bf16 engine (cast once) over phase 7's
+    trace, then the decode step and a chunk timed (``serve_tp_time``);
+    freed; then the float32 engine over the burst with its logits
+    recorded (``serve_recorded``). Kernel counts set to 0 before each
+    run (the plain engine launches none)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.config import MeshConfig, get_arch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import model
+    from repro_torch.serve import ServeEngine, synthetic_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = kernel_modules()
+    m = meshlib.make_mesh(MeshConfig((1, SERVE_TP), ("data", "model")))
+    cfg = get_arch("qwen2-7b")
+    out = dict(coords=m.coords, transport=m.transport, device=str(m.device))
+    for dtype in ("bf16", "float32"):
+        c = cfg if dtype == "bf16" else dataclasses.replace(
+            cfg, dtype="float32")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine(c, kv_cache="paged", mesh=m, seed=0, **SERVE_GEO)
+        torch.cuda.synchronize()
+        rec = dict(init_s=time.perf_counter() - t0,
+                   params=model.param_count_actual(eng.params),
+                   compile_s=eng.warmup())
+        reset_counts(kernels)
+        c0, b0 = m.collectives, m.carried_bytes
+        if dtype == "bf16":
+            reqs = synthetic_trace(SERVE_REQUESTS, **SERVE_TRACE)
+            rep = eng.run(reqs)
+        else:
+            reqs = synthetic_trace(SERVE_BURST_N, **SERVE_BURST)
+            rep, logs = serve_recorded(eng, reqs)
+            rec["logs"] = {k: [t.cpu() for t in v] for k, v in logs.items()}
+        rec.update(counts=read_counts(kernels), ids=serve_ids(rep),
+                   summary=rep.summary(),
+                   collectives=m.collectives - c0,
+                   carried_bytes=m.carried_bytes - b0,
+                   finished=all(len(r.tokens) == r.max_new
+                                for r in rep.results),
+                   free=(eng.allocator.in_use == 0
+                         and eng.allocator.available()
+                         == eng.geo.num_blocks - 1))
+        if dtype == "bf16":
+            rec.update(serve_tp_time(torch, eng, m))
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out[dtype] = rec
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp(torch, ids16, ref32):
+    """Lane 7b: SERVE_TP ranks sharing the card over gloo, against phase
+    7's single-device engine: gated, the float32 burst's ids equal to
+    phase 7's float32 engine's and its prefill and decode logits within
+    SERVE_TOL of their largest magnitude, every request finished and
+    every block free on every rank, both ranks' ids bit for bit, no
+    kernel launched; printed, how many of the bf16 trace's requests
+    equal phase 7's ids (not gated), the timings, gloo traffic and peak
+    memory a rank."""
+    from repro_torch.launch import mesh as meshlib
+
+    t0 = time.perf_counter()
+    ranks = meshlib.spawn_workers(SERVE_TP, serve_tp_rank)
+    label = "qwen2-7b TP (data 1, model 2)"
+    for r, rec in enumerate(ranks):
+        for dtype in ("bf16", "float32"):
+            x = rec[dtype]
+            if not (x["finished"] and x["free"]):
+                raise AssertionError(f"[serve] 7b: rank {r} {dtype}: "
+                                     f"finished {x['finished']}, every "
+                                     f"block free {x['free']}")
+            if x["ids"] != ranks[0][dtype]["ids"]:
+                raise AssertionError(f"[serve] 7b: rank {r}'s {dtype} ids "
+                                     "differ from rank 0's")
+            if any(x["counts"].values()):
+                raise AssertionError(f"[serve] 7b: rank {r} launched "
+                                     f"{x['counts']}")
+    b16, f32 = ranks[0]["bf16"], ranks[0]["float32"]
+    if f32["ids"] != ref32["ids"]:
+        raise AssertionError(f"[serve] 7b: float32 TP ids {f32['ids']} != "
+                             f"the single-device engine's {ref32['ids']}")
+    got, want = f32["logs"], ref32
+    if (len(got["decode"]) != len(want["decode"])
+            or len(got["prefill"]) != len(want["prefill"])):
+        raise AssertionError("[serve] 7b: the TP engine ran other programs "
+                             "than the single-device one")
+    first_err = max(serve_rel_err(torch, g, w.cpu()) for g, w in
+                    zip(got["prefill"], want["prefill"]))
+    step_err = max(serve_rel_err(torch, g, w.cpu()) for g, w in
+                   zip(got["decode"], want["decode"]))
+    agree = sum(b16["ids"][rid] == ids16[rid] for rid in ids16)
+    for r, rec in enumerate(ranks):
+        x = rec["bf16"]
+        log(f"[serve] 7b {label}: rank {r} {rec['coords']} on "
+            f"{rec['device']} ({rec['transport']}): {x['params']} params "
+            f"(bf16), drawn and cast in {x['init_s']!r} s; peak memory "
+            f"{x['peak_bytes']} bytes (bf16), {rec['float32']['peak_bytes']} "
+            f"(float32 burst)")
+    serve_summary_line(f"7b {label} bf16 trace", b16["summary"],
+                       b16["compile_s"])
+    serve_summary_line(f"7b {label} float32 burst", f32["summary"],
+                       f32["compile_s"])
+    log(f"[serve] 7b {label}: decode step at {list(SERVE_LENS)}: "
+        f"{b16['decode_ms']!r} ms (CUDA events over {SERVE_TIMED_STEPS}; "
+        f"host wall {b16['decode_wall_ms']!r} ms); "
+        f"{b16['launches_per_step']} device ops a step a rank "
+        f"(torch.profiler); {b16['collectives_per_step']!r} collectives and "
+        f"{b16['carried_bytes_per_step']!r} gloo bytes a step a rank; "
+        f"prefill chunk of 128 tokens {b16['prefill_chunk_ms']!r} ms")
+    log(f"[serve] 7b {label}: float32 burst ids equal the single-device "
+        f"engine's: True; prefill logits within {first_err!r}, decode "
+        f"logits within {step_err!r} of the largest magnitude (bound "
+        f"{SERVE_TOL!r}); both ranks' ids equal; bf16 trace ids equal "
+        f"phase 7's for {agree} of {len(ids16)} requests (not gated)")
+    if not (first_err <= SERVE_TOL and step_err <= SERVE_TOL):
+        raise AssertionError(f"[serve] 7b: TP and single-device logits "
+                             f"differ by {first_err}, {step_err}")
+    seconds = time.perf_counter() - t0
+    log(f"[path] lane 7b (TP decode) in {seconds:.1f} s")
+    keep = ("decode_ms", "decode_wall_ms", "prefill_chunk_ms",
+            "launches_per_step", "collectives_per_step",
+            "carried_bytes_per_step", "summary", "init_s", "params",
+            "compile_s", "collectives", "carried_bytes")
+    return dict(label=label, seconds=seconds, bf16_ids_equal=agree,
+                first_logits_err=first_err, decode_logits_err=step_err,
+                bf16={k: b16[k] for k in keep},
+                float32={k: f32[k] for k in keep if k in f32},
+                peak_bytes=[[r[d]["peak_bytes"] for d in ("bf16", "float32")]
+                            for r in ranks], transport=ranks[0]["transport"])
+
 
 
 # ---------------------------------------------------------------------------
@@ -3217,9 +3479,18 @@ def phase_serve(torch, kernels, profile=False):
 # ---------------------------------------------------------------------------
 
 MESH_STEPS = 5                  # lane 8a: 2*M*K + 1, not a whole epoch count
-MESH_FSDP_STEPS = 4             # lane 8b
+# lane 8b: one epoch (M*K = 2 steps), cut from 4 (its gloo steps took 13-28
+# s each) to make room for lanes 7b and 8d in the script's time
+MESH_FSDP_STEPS = 2
 MESH_WORKER_STEPS = 4           # lane 8c
 MESH_RANKS = 4                  # (data 2, model 2), sharing the card over gloo
+MESH_MOE_STEPS = 3              # lane 8d
+# lane 8d's router (each layer's whole leaf) and expert leaves (sampled)
+# against the (1, 1) run: bf16 rounding reroutes 5-10% of the token rows
+# (a flipped token moves its whole contribution), so each leaf is held
+# near the scale of a missing conjugate collective (30-70% on the CPU);
+# with the routing pinned to the (1, 1) run's, at UPDATE_RTOL
+MOE_LEAF_RTOL = 0.25
 
 
 def mesh_configs():
@@ -3240,6 +3511,29 @@ def mesh_configs():
     tred = dataclasses.replace(tcfg, seq_len=256, global_batch=8,
                                learning_rate=0.1, dp_replicated=True)
     return (full, tcfg), (red, tred)
+
+
+def mesh_moe_config():
+    """Lane 8d: qwen3-moe-30b-a3b's width cut to 2 layers, with lane 8b's
+    train config (seq 1024, W 1, A 2 microbatches of 2 rows, M 2, SGD)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch
+
+    (_, tcfg), _ = mesh_configs()
+    return dataclasses.replace(get_arch("qwen3-moe-30b-a3b"),
+                               num_layers=2), tcfg
+
+
+def mesh_lane(lane):
+    """(config, train config, steps, label) of lane 8b or 8d."""
+    if lane == "8b":
+        (cfg, tcfg), _ = mesh_configs()
+        return (cfg, tcfg, MESH_FSDP_STEPS,
+                "qwen2-7b width L=2 (data 2, model 2) FSDP+TP")
+    cfg, tcfg = mesh_moe_config()
+    return (cfg, tcfg, MESH_MOE_STEPS, "qwen3-moe-30b-a3b width L=2 "
+            "(data 2, model 2) FSDP+TP+experts")
 
 
 def mesh_tokens(cfg, tcfg, W):
@@ -3287,7 +3581,7 @@ def mesh_single(torch, kernels):
     before; held bit for bit against the epoch runner's two epochs from
     the same seed followed by one ``make_train_step`` step on its state.
     Returns the record, with the epoch runner's losses and sampled params
-    at steps 0 and 4 (lane 8b's yardstick)."""
+    at step 0 and after MESH_FSDP_STEPS (lane 8b's yardstick)."""
     import gc
 
     from repro_torch.launch import mesh as meshlib
@@ -3304,12 +3598,13 @@ def mesh_single(torch, kernels):
     run, _ = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True)
     state = tstep.init_train_state(cfg, tcfg, 1)
     p0 = state.params[0, sample.to(state.params.device)].double().cpu()
-    losses = []
-    for _ in range(2):
+    losses, after = [], {}
+    for e in range(2):
         state, ls = run(state)
         losses.append(ls)
+        after[len(ls) * (e + 1)] = state.params[
+            0, sample.to(state.params.device)].double().cpu()
     epoch_losses = torch.cat(losses).tolist()
-    p4 = state.params[0, sample.to(state.params.device)].double().cpu()
     step, _ = tstep.make_train_step(cfg, tcfg, meshlib.make_test_mesh(),
                                     fused=True)
     toks = mesh_tokens(cfg, tcfg, 1)
@@ -3352,15 +3647,65 @@ def mesh_single(torch, kernels):
     return dict(label=label, losses=res.losses, steps=MESH_STEPS,
                 wall_s=res.wall_time, steps_s=MESH_STEPS / res.wall_time,
                 peak_bytes=peak, counts=counts, eval_loss=res.final_eval_loss,
-                epoch_losses=epoch_losses[:MESH_FSDP_STEPS], p0=p0, p4=p4,
+                epoch_losses=epoch_losses[:MESH_FSDP_STEPS], p0=p0,
+                p_end=after[MESH_FSDP_STEPS],
                 sample=sample.numpy())
 
 
-def mesh_rank_fsdp(group, sample):
-    """In a rank of lane 8b: ``make_train_step`` on the (data 2, model 2)
-    mesh, FSDP over 'data' and TP over 'model', MESH_FSDP_STEPS fused
-    steps from the seeded state, counts set to 0 just before; K3's q / kv
-    shapes recorded at each launch."""
+def routing_spy(torch, replay=None):
+    """Records, at every ``moe._top_k`` call (the forward and the
+    backward's recomputation), the layer and each token's top-k experts
+    (int16, on the host); returns (records, undo). With ``replay`` (an
+    earlier run's records), the i-th call takes the i-th record's experts
+    instead of its own, with their probabilities."""
+    from repro_torch.models import moe, transformer
+
+    stack, block, top_k = (transformer.apply_stack_train,
+                           transformer.apply_block_train, moe._top_k)
+    layer_of, now, recs = {}, [None], []
+
+    def spy_stack(layers_p, *a, **kw):
+        layer_of.update({id(lp): i for i, lp in enumerate(layers_p)})
+        return stack(layers_p, *a, **kw)
+
+    def spy_block(lp, *a, **kw):
+        now[0] = layer_of.get(id(lp))
+        return block(lp, *a, **kw)
+
+    def spy_top_k(probs, k):
+        vals, idx = top_k(probs, k)
+        if replay is not None:
+            idx = replay[len(recs)][1].to(idx.device, torch.int64)
+            vals = probs.gather(1, idx)
+        recs.append((now[0], idx.to(torch.int16).cpu()))
+        return vals, idx
+
+    transformer.apply_stack_train = spy_stack
+    transformer.apply_block_train = spy_block
+    moe._top_k = spy_top_k
+
+    def undo():
+        transformer.apply_stack_train = stack
+        transformer.apply_block_train = block
+        moe._top_k = top_k
+    return recs, undo
+
+
+def router_leaves(layout, flat):
+    """Each layer's router as this rank holds it: (its slices of the full
+    leaf, its values float64 on the host)."""
+    return [(sl, flat[o:o + shp.numel()].view(shp).double().cpu())
+            for path, o, shp, sl in zip(layout.paths, layout.offsets,
+                                         layout.shapes, layout.slices)
+            if path.endswith("ffn/router")]
+
+
+def mesh_rank_fsdp(group, sample, lane="8b", replay=None):
+    """In a rank of lane 8b or 8d: ``make_train_step`` on the (data 2,
+    model 2) mesh, FSDP over 'data' and TP (and 8d's experts) over
+    'model', the lane's fused steps from the seeded state, counts set to
+    0 just before; K3's q / kv shapes recorded at each launch, and the
+    experts the rank holds in each layer."""
     import torch
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -3369,7 +3714,7 @@ def mesh_rank_fsdp(group, sample):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    (cfg, tcfg), _ = mesh_configs()
+    cfg, tcfg, steps, _ = mesh_lane(lane)
     m = meshlib.make_test_mesh()
     shapes = set()
     launch = fa_kernel.flash_attention
@@ -3383,90 +3728,125 @@ def mesh_rank_fsdp(group, sample):
     state = tstep.init_train_state(cfg, tcfg, 1, mesh=m)
     sample = torch.from_numpy(sample)
     p0 = local_sample(torch, pl.layout, state.params[0], sample)
+    r0 = router_leaves(pl.layout, state.params[0])
     toks = mesh_tokens(cfg, tcfg, 1)
     kernels = kernel_modules()
+    recs, _ = routing_spy(torch, replay) if cfg.is_moe else ([], None)
+    marks = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts(kernels)
     c0, b0 = m.collectives, m.carried_bytes
     losses, step_s = [], []
-    for s in range(MESH_FSDP_STEPS):
+    for s in range(steps):
         t0 = time.perf_counter()
         state, out = step(state, toks[0, s % 2])
         losses.append(float(out["loss"]))
         step_s.append(time.perf_counter() - t0)
+        marks.append(len(recs))
     counts = read_counts(kernels)
-    p4 = local_sample(torch, pl.layout, state.params[0], sample)
+    p_end = local_sample(torch, pl.layout, state.params[0], sample)
+    r_end = router_leaves(pl.layout, state.params[0])
+    experts = [shp[0] for path, shp in zip(pl.layout.paths, pl.layout.shapes)
+               if path.endswith("ffn/wg") and cfg.is_moe]
     return dict(losses=losses, step_s=step_s, counts=counts,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 local_n=pl.layout.n, full_n=pl.layout.full.n,
-                collectives=(m.collectives - c0) / MESH_FSDP_STEPS,
-                carried_bytes=(m.carried_bytes - b0) / MESH_FSDP_STEPS,
+                collectives=(m.collectives - c0) / steps,
+                carried_bytes=(m.carried_bytes - b0) / steps,
                 k3=sorted(shapes), transport=m.transport, coords=m.coords,
-                device=str(m.device), p0=p0, p4=p4)
+                device=str(m.device), p0=p0, p_end=p_end, experts=experts,
+                routing=recs, marks=marks, router0=r0, router_end=r_end)
 
 
-def mesh_fsdp_tp(torch, kernels, single):
-    """Lane 8b: MESH_RANKS ranks on the card, each with its shards, against
-    lane 8a's single-device run of the same seed and tokens: losses within
-    LOSS_RTOL (relative), the sampled params' update within UPDATE_RTOL
-    in norm, every rank's K3 on 14 q heads and 2 kv heads, launches per
-    step as the single-device step's."""
+def mesh_fsdp_tp(torch, kernels, single, lane="8b", replay=None):
+    """Lane 8b or 8d: MESH_RANKS ranks on the card, each with its shards,
+    against the lane's single-device run of the same seed and tokens
+    (8a's, or ``mesh_moe_single``'s): losses within LOSS_RTOL (relative),
+    the sampled params' update within UPDATE_RTOL in norm, every rank's
+    K3 on its heads (8b: 14 q / 2 kv of 28 / 4; 8d: 16 q / 2 kv of 32 /
+    4), launches per step as the single-device step's (K1 once), and in
+    8d 64 of the 128 experts of each layer a rank. With ``replay`` (8d),
+    every rank routes as the (1, 1) run did (``routing_spy``)."""
     from repro_torch.launch import mesh as meshlib
 
-    (cfg, _), _ = mesh_configs()
+    cfg, _, steps, label = mesh_lane(lane)
+    if replay is not None:
+        label += ", routing pinned to the (1, 1) run's"
     ranks = meshlib.spawn_workers(MESH_RANKS, mesh_rank_fsdp,
-                                  single["sample"])
-    label = "qwen2-7b width L=2 (data 2, model 2) FSDP+TP"
-    want_losses = torch.tensor(single["epoch_losses"], dtype=torch.float64)
-    expect = {k: v * MESH_FSDP_STEPS
-              for k, v in expected_launches(cfg, 2, 1).items()}
-    # one row of 1024 a rank; heads 28 / 4 kv split over 'model'
-    k3 = [((1, 1024, 14, 128), (1, 1024, 2, 128))]
+                                  single["sample"], lane, replay)
+    want_losses = torch.tensor(single["epoch_losses"][:steps],
+                               dtype=torch.float64)
+    expect = {k: v * steps for k, v in expected_launches(cfg, 2, 1).items()}
+    # one row of 1024 a rank; the q heads split over 'model', each rank
+    # reading the kv heads its q heads read
+    hq, kv = cfg.padded_heads // 2, cfg.num_kv_heads // 2
+    k3 = [((1, 1024, hq, cfg.head_dim), (1, 1024, kv, cfg.head_dim))]
+    experts = ([cfg.num_experts // 2] * cfg.num_layers if cfg.is_moe
+               else [])
     n = len(single["sample"])
     got0 = torch.full((n,), float("nan"), dtype=torch.float64)
-    got4 = got0.clone()
+    got_end = got0.clone()
     for r, rec in enumerate(ranks):
-        for dst, (pos, vals) in ((got0, rec["p0"]), (got4, rec["p4"])):
+        for dst, (pos, vals) in ((got0, rec["p0"]),
+                                 (got_end, rec["p_end"])):
             seen = ~torch.isnan(dst[pos])
             if not torch.equal(dst[pos][seen], vals[seen]):
-                raise AssertionError(f"[mesh] 8b: rank {r}'s replicated "
+                raise AssertionError(f"[mesh] {lane}: rank {r}'s replicated "
                                      "params differ from another rank's")
             dst[pos] = vals
         if rec["counts"] != expect:
-            raise AssertionError(f"[mesh] 8b: rank {r} launched "
+            raise AssertionError(f"[mesh] {lane}: rank {r} launched "
                                  f"{rec['counts']}, expected {expect}")
         if [tuple(map(tuple, x)) for x in rec["k3"]] != k3:
-            raise AssertionError(f"[mesh] 8b: rank {r} launched K3 at "
+            raise AssertionError(f"[mesh] {lane}: rank {r} launched K3 at "
                                  f"{rec['k3']}, expected {k3}")
+        if rec["experts"] != experts:
+            raise AssertionError(f"[mesh] {lane}: rank {r} holds "
+                                 f"{rec['experts']} experts a layer, "
+                                 f"expected {experts}")
         if rec["losses"] != ranks[0]["losses"]:
-            raise AssertionError(f"[mesh] 8b: rank {r}'s losses differ")
-    if bool(torch.isnan(got0).any() | torch.isnan(got4).any()):
-        raise AssertionError("[mesh] 8b: sampled params no rank holds")
+            raise AssertionError(f"[mesh] {lane}: rank {r}'s losses differ")
+    if bool(torch.isnan(got0).any() | torch.isnan(got_end).any()):
+        raise AssertionError(f"[mesh] {lane}: sampled params no rank holds")
     losses = torch.tensor(ranks[0]["losses"], dtype=torch.float64)
     loss_err = float(((losses - want_losses).abs()
                       / want_losses.abs()).max())
-    want_delta = single["p4"] - single["p0"]
+    want_delta = single["p_end"] - single["p0"]
     if not (torch.equal(got0, single["p0"])):
-        raise AssertionError("[mesh] 8b: the sharded init differs from the "
-                             "single-device one")
-    upd_err = float(((got4 - got0) - want_delta).norm() / want_delta.norm())
+        raise AssertionError(f"[mesh] {lane}: the sharded init differs from "
+                             "the single-device one")
+    upd_err = float(((got_end - got0) - want_delta).norm()
+                    / want_delta.norm())
+    leaves = leaf_gaps(torch, cfg, single["sample"], (got_end - got0)
+                       - want_delta, want_delta)
     for r, rec in enumerate(ranks):
-        log(f"[mesh] 8b {label}: rank {r} {rec['coords']} on "
+        log(f"[mesh] {lane} {label}: rank {r} {rec['coords']} on "
             f"{rec['device']} ({rec['transport']}): {rec['local_n']} of "
             f"{rec['full_n']} params, peak memory {rec['peak_bytes']} bytes, "
             f"steps {rec['step_s']} s, {rec['collectives']!r} collectives "
-            f"and {rec['carried_bytes']!r} bytes a step, K3 at {rec['k3']}")
-    log(f"[mesh] 8b {label}: losses {ranks[0]['losses']} against "
-        f"{single['epoch_losses']}: max relative difference {loss_err!r} "
-        f"(tolerance {LOSS_RTOL!r}); sampled update difference in norm "
-        f"{upd_err!r} (tolerance {UPDATE_RTOL!r}) on {n} params")
+            f"and {rec['carried_bytes']!r} bytes a step, K3 at {rec['k3']}"
+            + (f", experts a layer {rec['experts']}" if experts else ""))
+    log(f"[mesh] {lane} {label}: losses {ranks[0]['losses']} against "
+        f"{single['epoch_losses'][:steps]}: max relative difference "
+        f"{loss_err!r} (tolerance {LOSS_RTOL!r}); sampled update difference "
+        f"in norm {upd_err!r} (tolerance {UPDATE_RTOL!r}) on {n} params; "
+        f"launches a rank {ranks[0]['counts']}")
+    log(f"[mesh] {lane} each leaf's sampled update gap in norm and its "
+        f"share of the update's squared norm: {leaves}")
+    moe = (moe_agreement(torch, single, ranks, leaves,
+                         MOE_LEAF_RTOL if replay is None else UPDATE_RTOL)
+           if cfg.is_moe else {})
     if not loss_err <= LOSS_RTOL:
-        raise AssertionError(f"[mesh] 8b: losses differ by {loss_err}")
+        raise AssertionError(f"[mesh] {lane}: losses differ by {loss_err}")
     if not upd_err <= UPDATE_RTOL:
-        raise AssertionError(f"[mesh] 8b: updates differ by {upd_err}")
+        raise AssertionError(f"[mesh] {lane}: updates differ by {upd_err}")
+    for failure in moe.get("failures", []):
+        raise AssertionError(f"[mesh] {lane}: {failure}")
     return dict(label=label, losses=ranks[0]["losses"], loss_err=loss_err,
+                leaf_gaps=leaves,
+                **{k: v for k, v in moe.items() if k != "failures"},
                 update_err=upd_err, step_s=[r["step_s"] for r in ranks],
                 peak_bytes=[r["peak_bytes"] for r in ranks],
                 local_n=ranks[0]["local_n"],
@@ -3474,6 +3854,149 @@ def mesh_fsdp_tp(torch, kernels, single):
                 carried_bytes=ranks[0]["carried_bytes"],
                 counts=[r["counts"] for r in ranks],
                 transport=ranks[0]["transport"])
+
+
+def routing_flips(torch, single, rec, E):
+    """Lane 8d's routing against its (1, 1) run's, call by call (the
+    forward and the recomputation): per step, the token rows whose set of
+    experts differs and the (token, expert) assignments that differ."""
+    a, b = single["routing"], rec["routing"]
+    if [x[0] for x in a] != [x[0] for x in b] or single["marks"] != \
+            rec["marks"]:
+        return None
+    steps, start = [], 0
+    for end in single["marks"]:
+        rows = moved = diff = 0
+        for (_, x), (_, y) in zip(a[start:end], b[start:end]):
+            d = (torch.zeros(len(x), E).scatter_(1, x.long(), 1.0)
+                 - torch.zeros(len(y), E).scatter_(1, y.long(), 1.0)).abs()
+            rows += len(x)
+            moved += int((d.sum(1) > 0).sum())
+            diff += int(d.sum()) // 2
+        steps.append(dict(calls=end - start, token_rows=rows,
+                          rows_moved=moved, share=moved / max(rows, 1),
+                          assignments_moved=diff))
+        start = end
+    return steps
+
+
+def leaf_gaps(torch, cfg, sample, gap, want):
+    """By leaf path: the sampled update's gap in norm against the
+    single-device update, and the leaf's share of that update's squared
+    norm (how much of the lane's gap in norm it makes)."""
+    import numpy as np
+
+    from repro_torch.train.step import ShardedLayout
+
+    lay = ShardedLayout(cfg, ("data", "model"), (1, 1), (0, 0), fsdp=False)
+    leaf = torch.from_numpy(np.searchsorted(
+        np.asarray(lay.full.offsets), sample, side="right") - 1)
+    return {path: (float(gap[leaf == j].norm() / want[leaf == j].norm()),
+                   float(want[leaf == j].norm() ** 2 / want.norm() ** 2))
+            for j, path in enumerate(lay.paths) if bool((leaf == j).any())}
+
+
+def moe_agreement(torch, single, ranks, leaves, rtol):
+    """Lane 8d's MoE gates against the (1, 1) run: every rank routes as
+    rank 0 (bit for bit); each layer's whole router (put together from
+    the ranks' columns) and each expert leaf's sampled update within
+    ``rtol`` of the (1, 1) update; the routing flips between the two
+    runs printed. Returns the numbers and the gates that failed."""
+    cfg, _, _, _ = mesh_lane("8d")
+    failures = []
+    for r, rec in enumerate(ranks[1:], 1):
+        same = len(rec["routing"]) == len(ranks[0]["routing"]) and all(
+            la == lb and torch.equal(x, y) for (la, x), (lb, y) in
+            zip(rec["routing"], ranks[0]["routing"]))
+        if not same:
+            failures.append(f"rank {r} routes otherwise than rank 0")
+    router_err = []
+    for i, (_, want0) in enumerate(single["router0"]):
+        full0 = torch.full_like(want0, float("nan"))
+        full_end = full0.clone()
+        for rec in ranks:
+            sl, v0 = rec["router0"][i]
+            full0[sl] = v0
+            full_end[sl] = rec["router_end"][i][1]
+        want = single["router_end"][i][1] - want0
+        if not torch.equal(full0, want0):
+            failures.append(f"layer {i}'s router: the sharded init differs")
+        router_err.append(float(((full_end - full0) - want).norm()
+                                / want.norm()))
+    expert_err = {path: g for path, (g, _) in leaves.items()
+                  if path.endswith(("ffn/wg", "ffn/wu", "ffn/wd"))}
+    steps = routing_flips(torch, single, ranks[0], cfg.num_experts)
+    log(f"[mesh] 8d routing against the (1, 1) run, a step: "
+        f"{steps if steps is not None else 'the calls do not pair up'}")
+    log(f"[mesh] 8d router update gap in norm a layer (whole leaves) "
+        f"{router_err}, expert leaves' {expert_err} (tolerance {rtol!r})")
+    for i, err in enumerate(router_err):
+        if not err <= rtol:
+            failures.append(f"layer {i}'s router update differs by {err}")
+    for path, err in expert_err.items():
+        if not err <= rtol:
+            failures.append(f"{path}'s update differs by {err}")
+    return dict(router_err=router_err, routing=steps, failures=failures)
+
+
+def mesh_moe_single(torch, kernels):
+    """Lane 8d's yardstick: ``make_train_step`` on the (1, 1) mesh,
+    MESH_MOE_STEPS fused steps of ``mesh_moe_config``, counts set to 0
+    just before (gated as ``expected_launches``); its losses and sampled
+    params before and after, as 8a's record gives them to 8b."""
+    import gc
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import model
+    from repro_torch.train import step as tstep
+
+    cfg, tcfg = mesh_moe_config()
+    n = model.ParamLayout(cfg).n
+    sample = torch.randint(0, n, (min(LM_SAMPLES, n),),
+                           generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = meshlib.make_test_mesh()
+    step, meta = tstep.make_train_step(cfg, tcfg, m, fused=True)
+    lay = meta["placement"].layout
+    state = tstep.init_train_state(cfg, tcfg, 1, mesh=m)
+    idx = sample.to(state.params.device)
+    p0 = state.params[0, idx].double().cpu()
+    r0 = router_leaves(lay, state.params[0])
+    toks = mesh_tokens(cfg, tcfg, 1)
+    recs, undo = routing_spy(torch)
+    marks = []
+    reset_counts(kernels)
+    losses, step_s = [], []
+    try:
+        for s in range(MESH_MOE_STEPS):
+            t0 = time.perf_counter()
+            state, out = step(state, toks[0, s % 2])
+            losses.append(float(out["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            marks.append(len(recs))
+    finally:
+        undo()
+    counts = read_counts(kernels)
+    p_end = state.params[0, idx].double().cpu()
+    r_end = router_leaves(lay, state.params[0])
+    peak = torch.cuda.max_memory_allocated()
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = {k: v * MESH_MOE_STEPS
+              for k, v in expected_launches(cfg, 2, 1).items()}
+    label = "qwen3-moe-30b-a3b width L=2 (1, 1) mesh"
+    log(f"[mesh] 8d {label}: {n} params; losses {losses}; steps {step_s} s; "
+        f"peak memory {peak} bytes; launches {counts} (expected {expect})")
+    if counts != expect:
+        raise AssertionError(f"[mesh] 8d single: launches {counts}, "
+                             f"expected {expect}")
+    return dict(label=label, losses=losses, step_s=step_s, peak_bytes=peak,
+                counts=counts, epoch_losses=losses, p0=p0, p_end=p_end,
+                sample=sample.numpy(), routing=recs, marks=marks,
+                router0=r0, router_end=r_end)
 
 
 def mesh_rank_workers(group):
@@ -3553,22 +4076,37 @@ def mesh_workers(torch, kernels):
                 counts=[r["counts"] for r in ranks])
 
 
-def phase_mesh(torch, kernels):
+def phase_mesh(torch, kernels, pinned=False):
     """Phase 8: the per-step runtime (8a), FSDP and TP over 4 ranks at the
-    Qwen2-7B width (8b), Algorithm 2 across 'data' with TP inside (8c)."""
+    Qwen2-7B width (8b), Algorithm 2 across 'data' with TP inside (8c),
+    and expert parallelism at the qwen3-moe-30b-a3b width (8d: its
+    single-device run, then 4 ranks; ``pinned``: 4 ranks again with the
+    routing pinned to the single-device run's, which parts what routing
+    flips add to 8d's gap from what the arithmetic adds)."""
     t0 = time.perf_counter()
     single = mesh_single(torch, kernels)
     fsdp = mesh_fsdp_tp(torch, kernels, single)
     workers = mesh_workers(torch, kernels)
+    t8d = time.perf_counter()
+    moe_single = mesh_moe_single(torch, kernels)
+    moe = mesh_fsdp_tp(torch, kernels, moe_single, "8d")
+    if pinned:
+        moe["pinned"] = mesh_fsdp_tp(torch, kernels, moe_single, "8d",
+                                     moe_single["routing"])
+    log(f"[path] lane 8d (expert parallelism) in "
+        f"{time.perf_counter() - t8d:.1f} s")
     launches = dict(single["counts"])
-    for c in fsdp["counts"] + workers["counts"]:
+    for c in (fsdp["counts"] + workers["counts"] + [moe_single["counts"]]
+              + moe["counts"]):
         for k, v in c.items():
             launches[k] += v
-    single = {k: v for k, v in single.items()
-              if k not in ("p0", "p4", "sample")}
+    single, moe_single = ({k: v for k, v in rec.items()
+                           if k not in ("p0", "p_end", "sample", "routing",
+                                        "marks", "router0", "router_end")}
+                          for rec in (single, moe_single))
     log(f"[path] phase 8 (mesh) in {time.perf_counter() - t0:.1f} s")
     return dict(single=single, fsdp_tp=fsdp, workers=workers,
-                launches=launches)
+                moe_single=moe_single, moe=moe, launches=launches)
 
 
 def graph_ms(torch, fn, calls=200, replays=20):
@@ -4179,7 +4717,10 @@ def main():
             "count": torch.cuda.device_count()}}))
         return 0
     if "--mesh" in sys.argv[1:]:
-        mesh_rec = phase_mesh(torch, kernels)
+        # K2 and K3 against their plain versions at phase 8's shapes first
+        phase_compare_rmsnorm(torch, rms_kernel, rms_ref)
+        phase_compare_flash(torch, fa_kernel, fa_ref)
+        mesh_rec = phase_mesh(torch, kernels, pinned=True)
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
         log(f"[card] {smi}")
         log(json.dumps({"mesh": mesh_rec}))

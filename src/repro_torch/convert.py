@@ -276,6 +276,18 @@ def shard_params(params_np, cfg, mesh_sizes: dict, coords, *,
     return lay.load_(flat, lm_params_from_jax(params_np, cfg))
 
 
+def shard_tree(params_np, cfg, mesh_sizes: dict, coords, *,
+               fsdp: bool = False):
+    """The reference's full LM params as the params tree of the mesh
+    position ``coords`` (as in :func:`shard_params`): each leaf's shard
+    under ``sharding/specs.py`` (``tree_specs``; FSDP over 'data' when
+    ``fsdp``), as CPU tensors — the tree-form sibling of
+    :func:`shard_params`, the params a tensor-parallel serving rank
+    holds."""
+    lay = _sharded_layout(cfg, mesh_sizes, coords, fsdp)
+    return lay.shard_tree(lm_params_from_jax(params_np, cfg))
+
+
 def gather_flat(flats, cfg, mesh_sizes: dict, *,
                 fsdp: bool = True) -> torch.Tensor:
     """The inverse of :func:`shard_params`: every mesh position's local

@@ -137,11 +137,7 @@ def _attend_tp(p, cfg: ModelConfig, x, w):
     if index is not None:
         sel = torch.tensor(index, device=k.device)
         k, v = k.index_select(2, sel), v.index_select(2, sel)
-    out = _attention_core(cfg, q, k, v, w)
-    out = _head_mask(cfg, out, h0)
-    B, S, H, hd = out.shape
-    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
-    return tp.reduce_out(y)
+    return output_proj_serve(p, cfg, _attention_core(cfg, q, k, v, w))
 
 
 def _attention_core(cfg: ModelConfig, q, k, v, w):
@@ -304,13 +300,46 @@ def attend_serve(q, q_pos, k, v, k_pos, k_valid, *, window=None,
 
 def project_qkv_serve(p, cfg: ModelConfig, x, positions):
     """The projection for the serving runtime: per-lane absolute positions
-    (B, S) drive rope, unlike the lockstep decode."""
+    (B, S) drive rope, unlike the lockstep decode. Under tensor
+    parallelism q holds this rank's heads and k / v every kv head (the
+    serve cache is whole on every rank)."""
     return _project_qkv(p, cfg, x, positions)
+
+
+def serve_heads(p, cfg: ModelConfig):
+    """This rank's q heads under tensor-parallel serving, as (h0, k0, k1,
+    index) (:func:`tp_kv_heads`), or None where the q heads are whole."""
+    from repro_torch.sharding import tp
+    Hl = p["wq"].shape[1]
+    if not tp.split(Hl, cfg.padded_heads):
+        return None
+    h0 = tp.rank() * Hl
+    return (h0, *tp_kv_heads(cfg.padded_heads, cfg.num_kv_heads, h0,
+                             h0 + Hl))
+
+
+def kv_local(t, heads):
+    """The kv heads of ``t`` (..., KV, hd) that the rank's q heads read
+    (``heads`` from :func:`serve_heads`): the slice [k0, k1), with one kv
+    head gathered per q head where the split breaks the ``h // g`` map;
+    ``t`` itself where the heads are whole."""
+    if heads is None:
+        return t
+    t = t[..., heads[1]:heads[2], :]
+    if heads[3] is None:
+        return t
+    return t.index_select(-2, torch.tensor(heads[3], device=t.device))
 
 
 def output_proj_serve(p, cfg: ModelConfig, out):
     """Head-masked output projection, shared with the train and decode
-    paths: einsum("bshk,hkd->bsd") as one matmul."""
-    out = _head_mask(cfg, out)
+    paths: einsum("bshk,hkd->bsd") as one matmul. Where ``wo`` holds this
+    rank's heads (tensor-parallel serving), the product is a partial sum
+    that one all-reduce over 'model' completes."""
+    from repro_torch.sharding import tp
+    Hl = p["wo"].shape[0]
+    split = tp.split(Hl, cfg.padded_heads)
+    out = _head_mask(cfg, out, tp.rank() * Hl if split else 0)
     B, S, H, hd = out.shape
-    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    y = out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+    return tp.reduce_out(y) if split else y

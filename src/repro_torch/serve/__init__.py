@@ -10,8 +10,10 @@ Layering:
   * ``legacy``  — the static-batch per-token host loop, the fallback for
                   the non-attention archs and the engine's twin.
 
-Tensor-parallel decode is not ported yet (ROADMAP.md queue 1, item 14
-(TP)).
+Tensor-parallel decode: ``ServeEngine(mesh=...)`` on a ``launch.mesh``
+process mesh, each rank holding its shards of the params and the whole
+cache (``engine``), the programs in the mesh's tensor-parallel context
+(``runtime.build_programs``).
 """
 from repro_torch.serve.cache import BlockAllocator, Geometry
 from repro_torch.serve.engine import (RequestResult, ServeEngine,

@@ -35,11 +35,21 @@ maximal index, as ``np.argmax`` does), so one decode step moves ``width``
 ids to the host, its one sync.
 
 The engine runs on the current CUDA device unless given ``device``; it
-raises without a card rather than fall back to the CPU. Tensor-parallel
-decode (``mesh=``) is not ported yet.
+raises without a card rather than fall back to the CPU.
+
+Tensor-parallel decode (``mesh=``, a ``launch.mesh`` process mesh): each
+rank holds its shards of the params under ``sharding/specs.py``'s rules
+without FSDP (heads, MLP hidden dim, experts and vocab over 'model';
+replicated over 'data'), as the reference's ``_place_tp`` places them,
+and the whole cache, replicated. Every rank of the mesh runs the same
+engine on the same trace: admission, chunking, retirement and warmup
+depend only on ids and the step clock, so the ranks issue the same
+collectives in the same order, and each takes the argmax of the same
+gathered logits. A 'data' axis above one holds replicas.
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -131,11 +141,17 @@ class ServeEngine:
     ``width``: decode lanes; ``max_seq_len`` rounds up to a whole number
     of blocks and bounds prompt+max_new; ``num_blocks``: pool size incl.
     trash (default: enough for every lane at full length — the
-    interesting schedules use less); ``mesh``: tensor-parallel decode,
-    not ported yet (anything but None raises); ``device``: where it runs,
-    the current CUDA device by default. ``params`` are cast once
-    (``runtime.cast_params``); pass one engine's ``params`` to another to
-    share that copy. Without ``params`` they are drawn from ``seed``.
+    interesting schedules use less); ``mesh``: a ("data", "model")
+    process mesh for tensor-parallel decode (params sharded by the specs'
+    TP rules, cache and token streams replicated; every rank of the mesh
+    builds the engine and runs the same trace); ``device``: where it
+    runs, the current CUDA device by default (the mesh's with a mesh).
+    ``params`` are cast once (``runtime.cast_params``); pass one engine's
+    ``params`` to another to share that copy (on a mesh: a full tree,
+    which each rank slices). Without ``params`` they are drawn from ``seed``, on a
+    mesh one full leaf at a time, each rank keeping its slices, so that a
+    rank holds its shard and one leaf at most; the numbers are those of
+    ``model.init_params`` on the same device type.
     """
 
     def __init__(self, cfg: ModelConfig, params=None, *, width: int = 4,
@@ -146,9 +162,10 @@ class ServeEngine:
                  device=None):
         runtime.check_arch(cfg)
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel decode (mesh=) is not ported yet: "
-                "ROADMAP.md queue 1, item 14 (TP)")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"ServeEngine: device={device!r}, but this "
+                                 f"rank of the mesh runs on {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device, "repro_torch.serve.ServeEngine")
         self.cfg = cfg
         blocks_per_seq = -(-max_seq_len // block_size)
@@ -160,7 +177,9 @@ class ServeEngine:
         self.buckets = tuple(sorted(set(int(b) for b in chunk_buckets)))
         if not self.buckets:
             raise ValueError("chunk_buckets must be non-empty")
-        if params is None:
+        if mesh is not None:
+            params = tp_params(cfg, mesh, params, seed)
+        elif params is None:
             params = model.init_params(
                 cfg, torch.Generator(self.device).manual_seed(seed),
                 device=self.device)
@@ -168,6 +187,9 @@ class ServeEngine:
         self.cache = runtime.init_cache(cfg, self.geo, device=self.device)
         self.allocator = BlockAllocator(self.geo.num_blocks)
         self._decode, self._prefill = runtime.build_programs(cfg, self.geo)
+        if mesh is not None:
+            self._decode, self._prefill = (_in_scope(f, mesh, cfg) for f in
+                                           (self._decode, self._prefill))
         # host-side lane state
         w = self.geo.width
         self.lanes: List[Optional[_Lane]] = [None] * w
@@ -361,6 +383,41 @@ class ServeEngine:
             rec.event("serve_report", **{k: v for k, v in
                                          rep.summary().items()})
         return rep
+
+
+def tp_params(cfg: ModelConfig, mesh, params=None, seed: int = 0):
+    """This rank's params tree on ``mesh`` under ``sharding/specs.py``
+    without FSDP (``tree_specs(fsdp=False, axis_sizes=...)``, the
+    reference's ``_place_tp``), on the mesh's device: the slices of the
+    full tree ``params`` (``ShardedLayout.shard_tree``), or, without it, each full leaf drawn from ``seed`` in layout
+    order (``model.init_params``'s draw) and sliced, one leaf at a time."""
+    from repro_torch.train.step import ShardedLayout
+    lay = ShardedLayout(cfg, mesh.axis_names, mesh.shape, mesh.coords,
+                        fsdp=False)
+    if params is not None:
+        return lay.shard_tree(params, mesh.device)
+    gen = torch.Generator(mesh.device).manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    leaves = []
+    for shp, init, sl, local in zip(lay.full.shapes, lay.inits, lay.slices,
+                                    lay.shapes):
+        full = model.fill_(torch.empty(shp, dtype=dtype,
+                                       device=mesh.device), init, gen)
+        leaves.append(full if shp == local else full[sl].clone())
+        del full
+    return lay.unflatten(leaves)
+
+
+def _in_scope(program, mesh, cfg):
+    """``program`` called in the mesh's tensor-parallel context
+    (``sharding/tp.py``)."""
+    from repro_torch.sharding import tp
+
+    @functools.wraps(program)
+    def call(*args):
+        with tp.scope(mesh, cfg):
+            return program(*args)
+    return call
 
 
 def _sync(t: torch.Tensor) -> None:

@@ -41,6 +41,16 @@ concatenated stream ``[old ring, chunk]`` and only afterwards folds the
 chunk into the ring by a deterministic gather (slot c takes the newest
 chunk position = c mod slots).
 
+Tensor parallelism: called inside ``tp.scope(mesh, cfg)`` (the engine
+does so with a mesh), the programs take the rank's shards
+(``serve/engine.py:tp_params``). Attention runs over the
+rank's q heads against the kv heads they read from the whole,
+replicated cache (every rank writes every kv head) and ends in one
+all-reduce over 'model'; the MLP is column / row parallel, the MoE
+expert-parallel (``models/moe.py``); the embedding is the vocab-parallel
+lookup and the logits are gathered over 'model', so every rank takes the
+same argmax.
+
 Params: the reference casts each block's float params to the compute
 dtype inside every step. :func:`cast_params` does it once (the engine
 calls it when it is built); the result is bit-identical, and a tree that
@@ -147,6 +157,7 @@ def _decode_attend(p, cfg, geo, x, kv, window, ctx):
     D = geo.width
     positions, lane = ctx["positions"], ctx["lane"]
     q, k_new, v_new = attention.project_qkv_serve(p, cfg, x, positions)
+    heads = attention.serve_heads(p, cfg)
 
     if window:
         slot, k_pos, k_valid = _ring(ctx, kv["k"].shape[1])
@@ -154,8 +165,10 @@ def _decode_attend(p, cfg, geo, x, kv, window, ctx):
         for name, new in (("k", k_new), ("v", v_new)):
             buf = kv[name]
             buf[lane, slot] = torch.where(keep, buf[lane, slot], new[:, 0])
-        out = attention.attend_serve(q, positions, kv["k"], kv["v"], k_pos,
-                                     k_valid, window=window,
+        out = attention.attend_serve(q, positions,
+                                     attention.kv_local(kv["k"], heads),
+                                     attention.kv_local(kv["v"], heads),
+                                     k_pos, k_valid, window=window,
                                      softcap=cfg.attn_logit_softcap)
         return attention.output_proj_serve(p, cfg, out), kv
 
@@ -176,6 +189,8 @@ def _decode_attend(p, cfg, geo, x, kv, window, ctx):
             buf[lane, slot] = torch.where(live, new[:, 0], buf[lane, slot])
         k_c, v_c = kv["k"], kv["v"]
 
+    # under TP the kv heads this rank's q heads read
+    k_c, v_c = attention.kv_local(k_c, heads), attention.kv_local(v_c, heads)
     out = attention.attend_serve(q, positions, k_c, v_c, ctx["k_pos"],
                                  ctx["k_valid"], window=None,
                                  softcap=cfg.attn_logit_softcap)
@@ -194,6 +209,7 @@ def _prefill_attend(p, cfg, geo, x, kv, window, len0, n_valid, lane,
     pos_i = len0 + i                                # (C,) absolute positions
     positions = pos_i[None, :]
     q, k_new, v_new = attention.project_qkv_serve(p, cfg, x, positions)
+    heads = attention.serve_heads(p, cfg)
     chunk_valid = i < n_valid
 
     if window:
@@ -205,7 +221,10 @@ def _prefill_attend(p, cfg, geo, x, kv, window, len0, n_valid, lane,
         v_s = torch.cat([ring_v[None], v_new], 1)
         k_pos = torch.cat([r_pos, positions], 1)
         k_valid = torch.cat([r_valid, chunk_valid[None]], 1)
-        out = attention.attend_serve(q, positions, k_s, v_s, k_pos, k_valid,
+        out = attention.attend_serve(q, positions,
+                                     attention.kv_local(k_s, heads),
+                                     attention.kv_local(v_s, heads),
+                                     k_pos, k_valid,
                                      window=window,
                                      softcap=cfg.attn_logit_softcap)
         # fold the chunk into the ring: slot c takes the newest valid chunk
@@ -239,6 +258,7 @@ def _prefill_attend(p, cfg, geo, x, kv, window, len0, n_valid, lane,
         kv["v"][lane, len0:len0 + n_valid] = v_new[0, :n_valid]
         k_c, v_c = kv["k"][lane][None], kv["v"][lane][None]
 
+    k_c, v_c = attention.kv_local(k_c, heads), attention.kv_local(v_c, heads)
     out = attention.attend_serve(q, positions, k_c, v_c, k_pos, k_valid,
                                  window=None, softcap=cfg.attn_logit_softcap)
     return attention.output_proj_serve(p, cfg, out), kv
@@ -257,8 +277,31 @@ def _apply_block(bp, bc, cfg, x, mixer_fn):
     if cfg.is_moe:
         y, _ = moe.apply_moe(bp["ffn"], cfg, h)
     else:
-        y = layers.apply_mlp(bp["ffn"], h, cfg.mlp_type)
+        y = layers.apply_mlp(bp["ffn"], h, cfg.mlp_type,
+                             tp_split=transformer._mlp_split(bp["ffn"], cfg))
     return x + y, bc
+
+
+def _embed(params, cfg, tokens):
+    """The tokens' embedding rows in the compute dtype: a masked lookup of
+    the rank's vocab rows and an all-reduce where the vocab is split over
+    'model'."""
+    from repro_torch.sharding import tp
+    compute = getattr(torch, cfg.dtype)
+    if model._vocab_split(params, cfg):
+        return tp.embed(params["embed"]["tok"], tokens).to(compute)
+    return layers.embed_tokens(params["embed"], tokens).to(compute)
+
+
+def _logits(params, cfg, x):
+    """The head's float32 logits over the whole vocabulary: the rank's
+    vocab columns gathered over 'model' where the vocab is split, so that
+    every rank takes the same argmax."""
+    from repro_torch.sharding import tp
+    logits = layers.lm_logits(params["head"], params["embed"], x,
+                              cfg.tie_embeddings).to(torch.float32)
+    return tp.gather_out(logits) if model._vocab_split(params, cfg) \
+        else logits
 
 
 def decode_step(params, cfg: ModelConfig, geo: Geometry, cache,
@@ -266,8 +309,7 @@ def decode_step(params, cfg: ModelConfig, geo: Geometry, cache,
     """tokens / lens / alive: (width,) tensors; tables: (width,
     blocks_per_seq) -> (logits (width, vocab) float32, cache), the cache
     written in place."""
-    compute = getattr(torch, cfg.dtype)
-    x = layers.embed_tokens(params["embed"], tokens[:, None]).to(compute)
+    x = _embed(params, cfg, tokens[:, None])
     ctx = _decode_context(geo, lens, alive, tables)
 
     def block_fn(bp, bc, kind, window, x):
@@ -279,9 +321,7 @@ def decode_step(params, cfg: ModelConfig, geo: Geometry, cache,
     x, cache = transformer.apply_stack_serve(params["layers"], cache, cfg,
                                              x, block_fn)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_type)
-    logits = layers.lm_logits(params["head"], params["embed"], x,
-                              cfg.tie_embeddings)
-    return logits[:, 0].to(torch.float32), cache
+    return _logits(params, cfg, x)[:, 0], cache
 
 
 def prefill_chunk(params, cfg: ModelConfig, geo: Geometry, cache,
@@ -289,8 +329,7 @@ def prefill_chunk(params, cfg: ModelConfig, geo: Geometry, cache,
     """tokens: (C,) tensor; len0 / n_valid / lane: ints; table_row:
     (blocks_per_seq,) tensor -> (logits (vocab,) float32 at the last valid
     position, cache), the cache written in place."""
-    compute = getattr(torch, cfg.dtype)
-    x = layers.embed_tokens(params["embed"], tokens[None, :]).to(compute)
+    x = _embed(params, cfg, tokens[None, :])
 
     def block_fn(bp, bc, kind, window, x):
         return _apply_block(
@@ -303,9 +342,7 @@ def prefill_chunk(params, cfg: ModelConfig, geo: Geometry, cache,
     last = min(max(n_valid - 1, 0), tokens.shape[0] - 1)
     x_last = layers.apply_norm(params["final_norm"], x[:, last:last + 1],
                                cfg.norm_type)
-    logits = layers.lm_logits(params["head"], params["embed"], x_last,
-                              cfg.tie_embeddings)
-    return logits[0, 0].to(torch.float32), cache
+    return _logits(params, cfg, x_last)[0, 0], cache
 
 
 def _device_of(cache):
@@ -335,6 +372,7 @@ def build_programs(cfg: ModelConfig, geo: Geometry):
     the reference memoizes its jitted pair. Each runs without autograd,
     stages its host arrays onto the cache's device with one copy and
     writes the cache in place."""
+
     @torch.no_grad()
     def _decode(params, cache, tokens, lens, alive, tables):
         tokens, lens, alive, tables = stage(_device_of(cache), tokens, lens,

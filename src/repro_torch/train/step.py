@@ -521,6 +521,24 @@ class ShardedLayout(model.ParamLayout):
         model.tree_zip(put, self.tree, params)
         return flat
 
+    def shard_tree(self, params, device=None):
+        """The rank's params tree from a full one: each leaf's slice, a
+        copy of its own where the slice is a proper part (so the full leaf
+        can be freed), on ``device`` (the leaf's own by default)."""
+        leaves = [None] * len(self.shapes)
+
+        def put(j, value):
+            value = torch.as_tensor(value)
+            if value.shape != self.full.shapes[j]:
+                raise ValueError(
+                    f"param {j}: shape {tuple(value.shape)}, the layout has "
+                    f"{tuple(self.full.shapes[j])}")
+            if value.shape != self.shapes[j]:
+                value = value[self.slices[j]].clone()
+            leaves[j] = value.to(device) if device is not None else value
+        model.tree_zip(put, self.tree, params)
+        return self.unflatten(leaves)
+
     def sharded_over(self, axis: str):
         """Leaf numbers whose spec splits them over ``axis``."""
         return [j for j, spec in enumerate(self.specs)
@@ -693,11 +711,11 @@ def placement(cfg: ModelConfig, tcfg: TrainConfig, mesh,
               workers: Optional[int] = None) -> Placement:
     """The :class:`Placement` of ``make_train_step(cfg, tcfg, mesh,
     vr_workers, workers=workers)``. ``W``, when given, must be its worker
-    count. Raises for what the port does not run: a MoE arch with a
-    'model' axis above one (its expert-parallel rules, ROADMAP.md queue
-    1, item 16), and workers on a 'data' axis above one without
-    ``dp_replicated`` (each such worker holds a whole model copy, which
-    the reference's specs cannot place either)."""
+    count. A MoE arch on a 'model' axis above one holds its experts and
+    router columns split over 'model' (``models/moe.py``). Raises for
+    workers on a 'data' axis above one without ``dp_replicated`` (each
+    such worker holds a whole model copy, which the reference's specs
+    cannot place either)."""
     from repro_torch.launch import mesh as meshlib
     mode = tcfg.vr
     if workers is not None:
@@ -711,13 +729,6 @@ def placement(cfg: ModelConfig, tcfg: TrainConfig, mesh,
                   if mode != "none" else ())
         n = (meshlib.worker_count(mesh, vr_workers) if mode != "none"
              else 1)
-        if cfg.is_moe and sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: a MoE arch on a 'model' axis of "
-                f"{sizes['model']} needs the expert-parallel placement "
-                "(its experts and router over 'model'), which the port "
-                "does not run yet (ROADMAP.md queue 1, item 16); use a "
-                "mesh with model=1 (FSDP only)")
         if ("data" in w_axes and sizes.get("data", 1) > 1
                 and not tcfg.dp_replicated):
             raise ValueError(

@@ -859,3 +859,74 @@ def test_constrain_gathers_cuda_shards_over_gloo(device):
     for transport, on_card, fwd, bwd, n in meshlib.spawn_workers(
             2, _constrain_rank, transport="gloo", timeout=300):
         assert transport == "gloo" and on_card and fwd and bwd and n == 2
+
+
+def _moe_split_rank(group):
+    """In a rank of two sharing the card over gloo: ``apply_moe`` with 2
+    of the 4 experts and their router columns a rank against the unsplit
+    call, in float32 on CUDA (``torch_mesh_cases.moe_checks``)."""
+    import torch_mesh_cases as mc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return mc.moe_checks(group, (1, 2), None)
+
+
+def test_expert_parallel_moe_matches_unsplit_on_the_card(device):
+    from repro_torch.launch import mesh as meshlib
+
+    for checks, held in meshlib.spawn_workers(2, _moe_split_rank,
+                                              transport="gloo", timeout=300):
+        assert held == {"qwen3-moe-30b-a3b": 2, "qwen2-moe-a2.7b": 2}
+        for name, err in checks:
+            assert err <= 3e-5, (name, err)
+
+
+def _tp_decode_rank(group):
+    """In a rank of two sharing the card over gloo: one decode step of
+    qwen2-7b reduced in float32 on the (data 1, model 2) mesh from a
+    random paged cache, against the single-device step on the full params
+    (``model.init_params`` on CUDA, seed 0) and a copy of the cache: the
+    largest logit difference of the live lanes over their largest
+    magnitude."""
+    import dataclasses
+
+    from repro_torch.config import MeshConfig, get_arch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import model
+    from repro_torch.serve import runtime
+    from repro_torch.serve.cache import Geometry
+    from repro_torch.serve.engine import tp_params
+    from repro_torch.sharding import tp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("qwen2-7b").reduced(),
+                              dtype="float32")
+    m = meshlib.make_mesh(MeshConfig((1, 2), ("data", "model")))
+    geo = Geometry(width=3, block_size=4, blocks_per_seq=4, num_blocks=10,
+                   kv_cache="paged")
+    params = model.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                               device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    cache = [{k: torch.randn(t.shape, generator=gen).cuda()
+              for k, t in layer.items()}
+             for layer in runtime.init_cache(cfg, geo, device="cpu")]
+    args = (np.array([5, 7, 11]), np.array([6, 0, 13]),
+            np.array([1, 0, 1]), np.array([[3, 5, 0, 0], [0, 0, 0, 0],
+                                           [1, 2, 4, 7]]))
+    decode, _ = runtime.build_programs(cfg, geo)
+    want, _ = decode(params, [{k: t.clone() for k, t in layer.items()}
+                              for layer in cache], *args)
+    with tp.scope(m, cfg):
+        got, _ = decode(tp_params(cfg, m, params), cache, *args)
+    live = torch.tensor([0, 2], device=got.device)
+    err = float((got[live] - want[live]).abs().max()
+                / want[live].abs().max())
+    return m.transport, bool(got.is_cuda), err, m.collectives
+
+
+def test_tp_decode_step_matches_single_device_on_the_card(device):
+    from repro_torch.launch import mesh as meshlib
+
+    for transport, on_card, err, n in meshlib.spawn_workers(
+            2, _tp_decode_rank, transport="gloo", timeout=300):
+        assert transport == "gloo" and on_card and n > 0
+        assert err <= 3e-5, err

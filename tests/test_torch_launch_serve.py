@@ -1,6 +1,6 @@
 """The port's serving launcher, ``repro_torch.launch.serve``, on the CPU:
-the engine on an attention arch and the legacy fallback on Mamba2, the
-tensor-parallel refusal, ``--obs`` records that both packages' validators
+the engine on an attention arch and the legacy fallback on Mamba2,
+``--obs`` records that both packages' validators
 accept, the reference's flags plus ``--device``, and a run that imports
 neither jax nor the reference."""
 import os
@@ -46,11 +46,6 @@ def test_serve_cli_runs_and_records(arch, path, tmp_path, capsys):
     report = capsys.readouterr().out
     assert f"serving ({path}):" in report
     assert "4 requests" in report
-
-
-def test_tp_is_refused_naming_its_item():
-    with pytest.raises(SystemExit, match=r"item 14 \(TP\)"):
-        serve_cli.main(["--arch", "qwen2-7b", *SMALL, "--tp", "2"])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -66,6 +66,10 @@ CASES_4 = [
     _case("recurrentgemma d2m2", D2M2, arch="recurrentgemma-2b"),
     _case("qwen3-moe d4m1", D4M1, arch="qwen3-moe-30b-a3b"),
     _case("qwen2-moe d4m1", D4M1, arch="qwen2-moe-a2.7b"),
+    _case("qwen3-moe d2m2", D2M2, arch="qwen3-moe-30b-a3b"),
+    _case("qwen2-moe d2m2", D2M2, arch="qwen2-moe-a2.7b"),
+    _case("qwen3-moe d2m2 grad", D2M2, arch="qwen3-moe-30b-a3b", vr="none",
+          steps=2),
     _case("host loop d2m2 workers data", D2M2, workers="data", dp=True,
           host_loop=True),
 ]
@@ -161,7 +165,7 @@ def runs():
     ranks = {c["name"]: [r[c["name"]] for r in by_rank[4 if c in CASES_4
                                                      else 8]]
              for c in CASES}
-    return dict(ranks=ranks, singles=singles, four=by_rank[4])
+    return dict(ranks=ranks, singles=singles, four=by_rank[4], refs=refs)
 
 
 def _by_name(name):
@@ -223,6 +227,16 @@ def test_sharded_gradient_matches_the_single_device_gradient(runs):
             np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
 
 
+def test_expert_parallel_gradient_matches_the_single_device_gradient(runs):
+    """The same for qwen3-moe-30b-a3b with its experts and router split
+    over 'model' and FSDP over 'data'."""
+    single = runs["singles"][("qwen3-moe-30b-a3b", "none", 1)]
+    for r in runs["ranks"]["qwen3-moe d2m2 grad"]:
+        got = r["grad"][0]
+        for want in (single["grad"], single["ref_grad"]):
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
+
+
 @pytest.mark.parametrize("name", [n for n in STEPPED
                                   if mc.workers_of(_by_name(n)) > 1])
 def test_workers_diverge_then_sync(runs, name):
@@ -268,6 +282,37 @@ def test_module_checks_against_full_tensor_autograd(runs):
             assert err <= 1e-5, (name, err)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"])
+def test_expert_parallel_moe_matches_the_unsplit_moe(runs, arch):
+    """``apply_moe`` with each rank holding 2 of the 4 experts and their
+    router columns, against the unsplit call, at capacity factors 0.25
+    and E: output, aux, and the gradients of the input, the router and
+    the rank's experts (and shared expert), scaled as ``assert_close``."""
+    for rank in runs["four"]:
+        checks, held = rank["moe"]
+        assert held[arch] == 2
+        mine = [(n, e) for n, e in checks if n.startswith(arch)]
+        names = {n.split(" ", 3)[-1] for n, _ in mine}
+        assert {"y", "aux", "grad x", "grad router", "grad wg",
+                "grad wu", "grad wd"} <= names
+        for name, err in mine:
+            assert err <= LM_TOL["rtol"], (name, err)
+
+
+def test_tp_serving_on_data2_model2_gives_the_single_device_ids(runs):
+    """``ServeEngine(mesh=...)`` on (data 2, model 2): each data row a
+    replica of two tensor-parallel ranks; every rank serves the
+    single-device engine's ids in float32 and frees every block."""
+    import torch_serve_tp_cases as tc
+    cfg = mc.cfg_of("qwen2-7b")
+    want = tc.serve_ids(cfg, convert.lm_params_from_jax(
+        runs["refs"][mc.SERVE_REF][0], cfg), "paged")
+    for rank in runs["four"]:
+        got = rank["serve"]
+        assert got["ids"] == want["ids"]
+        assert got["in_use"] == 0 and got["free"]
+
+
 def test_refusals_on_a_world_of_four(runs):
     for rank in runs["four"]:
         got = {name: (kind, text) for name, kind, text in rank["refusals"]}
@@ -275,8 +320,6 @@ def test_refusals_on_a_world_of_four(runs):
         assert "needs a world of 256 ranks" in got["production"][1]
         assert "world has 4" in got["production"][1]
         assert "needs a world of 512 ranks" in got["multipod"][1]
-        assert got["moe"][0] == "NotImplementedError"
-        assert "item 16" in got["moe"][1]
         assert got["data workers"][0] == "ValueError"
         assert "dp_replicated=True" in got["data workers"][1]
         assert "needs 8 ranks" in got["mesh world"][1]

@@ -203,15 +203,13 @@ def test_engine_rejects_unsupported_archs(setup):
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
 def test_no_card_no_fallback(setup):
     """Without a card the engine and the legacy loop raise unless asked
-    for the CPU; tensor-parallel decode raises naming its item."""
+    for the CPU."""
     cfg, params = setup
     trace = synthetic_trace(1, prompt_len=4, max_new=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_host_loop(cfg, trace, params=params)
-    with pytest.raises(NotImplementedError, match=r"item 14 \(TP\)"):
-        ServeEngine(cfg, params, mesh=object(), device="cpu")
 
 
 def test_serve_run_emits_valid_telemetry(setup, tmp_path):

@@ -16,11 +16,14 @@ from repro_torch import convert
 from repro_torch.config import MeshConfig, TrainConfig, get_arch
 from repro_torch.core import spmd
 from repro_torch.launch import mesh as meshlib
-from repro_torch.sharding import gather_ctx, tp
+from repro_torch.models import model, moe
+from repro_torch.sharding import gather_ctx, specs, tp
 from repro_torch.train import host_loop
 from repro_torch.train import step as tstep
 
 STEPS = 5
+# the reference params the serve check draws on: qwen2-7b's, W 1
+SERVE_REF = ("qwen2-7b", "centralvr", 1)
 
 
 def cfg_of(arch):
@@ -143,10 +146,93 @@ def module_checks(group):
     return out
 
 
+def _leaves(tree, prefix=""):
+    """(path, leaf) of a params tree of dicts, in order."""
+    out = []
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out += _leaves(v, path) if isinstance(v, dict) else [(path, v)]
+    return out
+
+
+def moe_checks(group, shape=(2, 2), device="cpu"):
+    """``apply_moe`` with its experts and router split over 'model' on the
+    (data, model) mesh of ``shape`` (on ``device``; None: the rank's
+    card) against the unsplit call in this rank, for
+    both MoE archs at capacity factors 0.25 (many drops) and E (none):
+    the output, the aux loss, and the gradients of the input, the router,
+    the rank's experts and (qwen2-moe) the shared expert and its gate, of
+    sum(y * ct) + 3 aux. (name, largest difference over the largest
+    magnitude where that is above 1, as ``torch_lm_common.assert_close``
+    scales its absolute part) pairs, and the number of experts this rank
+    holds of each arch."""
+    m = meshlib.make_mesh(MeshConfig(shape, ("data", "model")),
+                          device=device)
+    sizes = meshlib.mesh_axis_sizes(m)
+    out, held = [], {}
+    for arch in ("qwen3-moe-30b-a3b", "qwen2-moe-a2.7b"):
+        cfg = cfg_of(arch)
+        gen = torch.Generator().manual_seed(0)
+        full = moe.init_moe(cfg, lambda shape, init: (torch.randn(
+            shape, generator=gen) * 0.2).to(m.device))
+        x = torch.randn(2, 32, cfg.d_model, generator=gen).to(m.device)
+        ct = torch.randn(x.shape, generator=gen).to(m.device)
+
+        def local_of(path, t):
+            spec = specs.leaf_spec(f"ffn/{path}", t.shape, cfg,
+                                   axis_sizes=sizes)
+            sl = []
+            for n, ax in zip(t.shape, spec):
+                k, parts = ((m.coords[m.axis_names.index(ax)], sizes[ax])
+                            if ax else (0, 1))
+                sl.append(slice(k * n // parts, (k + 1) * n // parts))
+            return t[tuple(sl)]
+        for cf in (0.25, float(cfg.num_experts)):
+            ref = model.tree_map(lambda t: t.clone().requires_grad_(), full)
+            xr = x.clone().requires_grad_()
+            y, aux = moe.apply_moe(ref, cfg, xr, capacity_factor=cf)
+            ((y * ct).sum() + 3 * aux).backward()
+            loc = {}
+            for path, t in _leaves(full):
+                node = loc
+                *dirs, name = path.split("/")
+                for k in dirs:
+                    node = node.setdefault(k, {})
+                node[name] = local_of(path, t).clone().requires_grad_()
+            xl = x.clone().requires_grad_()
+            with tp.scope(m, cfg):
+                yl, auxl = moe.apply_moe(loc, cfg, xl, capacity_factor=cf)
+                ((yl * ct).sum() + 3 * auxl).backward()
+            tag = f"{arch} cf {cf:g}"
+            held[arch] = loc["wg"].shape[0]
+            pairs = [("y", yl, y), ("aux", auxl, aux),
+                     ("grad x", xl.grad, xr.grad)]
+            pairs += [(f"grad {path}", a.grad, local_of(path, b.grad))
+                      for (path, a), (_, b) in zip(_leaves(loc),
+                                                   _leaves(ref))]
+            for name, got, want in pairs:
+                got, want = got.detach(), want.detach()
+                scale = max(1.0, float(want.abs().max()))
+                out.append((f"{tag} {name}",
+                            float((got - want).abs().max()) / scale))
+    return out, held
+
+
+def serve_check(group, p0):
+    """The tensor-parallel engine on the (data 2, model 2) mesh (two
+    replicas of two TP ranks) over the reference TP test's trace, paged,
+    from the reference's params ``p0`` (qwen2-7b reduced, float32)."""
+    import torch_serve_tp_cases as tc
+    m = meshlib.make_mesh(MeshConfig((2, 2), ("data", "model")),
+                          device="cpu")
+    cfg = cfg_of("qwen2-7b")
+    return tc.serve_ids(cfg, convert.lm_params_from_jax(p0, cfg), "paged",
+                        m)
+
+
 def refusals(group):
     """What a rank of a world of 4 refuses: (name, exception type, text)."""
     out = []
-    cfg = cfg_of("qwen3-moe-30b-a3b")
     m = meshlib.make_mesh(MeshConfig((2, 2), ("data", "model")),
                           device="cpu")
     for name, call in (
@@ -154,8 +240,6 @@ def refusals(group):
                 device="cpu")),
             ("multipod", lambda: meshlib.make_production_mesh(
                 multi_pod=True, device="cpu")),
-            ("moe", lambda: tstep.make_train_step(
-                cfg, tcfg_of("centralvr", 1), m)),
             ("data workers", lambda: tstep.make_train_step(
                 cfg_of("qwen2-7b"), tcfg_of("centralvr", 2), m, "data")),
             ("mesh world", lambda: meshlib.make_mesh(
@@ -180,5 +264,7 @@ def run_all(group, cases, refs, checks):
             out[case["name"]] = run_case(case, p0, toks)
     if checks:
         out["module"] = module_checks(group)
+        out["moe"] = moe_checks(group)
+        out["serve"] = serve_check(group, refs[SERVE_REF][0])
         out["refusals"] = refusals(group)
     return out
