@@ -29,10 +29,12 @@ Phases, each of which raises on failure:
      largest magnitude. K2 at 1024 x 3584 (the LM step's rows
      and width) in bfloat16 and float32, a ragged row count and the
      reduced width: error <= 1e-5 relative in float32, <= 1e-2 in
-     bfloat16 (one rounding of a value below 4). K3 at the LM step's
-     shape (S 1024, 28 query / 4 kv heads, hd 128), with a sliding
-     window, S not a multiple of the block, H = KV, and the reduced
-     config's shape: error <= 2e-2 (bf16 output, float32 sums in
+     bfloat16 (one rounding of a value below 4); K2 also at phase 9's
+     examples' rows and widths (512 x 640, 128 x 128). K3 at the LM
+     step's shape (S 1024, 28 query / 4 kv heads, hd 128), with a sliding
+     window, S not a multiple of the block, H = KV, the reduced config's
+     shape and phase 9's examples' (B 2: S 256, 10 / 2 heads, hd 64; S
+     64, 4 / 2 heads, hd 32): error <= 2e-2 (bf16 output, float32 sums in
      another order); and K3 in float32 at the LM step's shape and in
      bfloat16 at hd 256 (recurrentgemma-2b's 10 / 1 heads, and its
      local blocks' S 4096 with window 2048): <= 1e-4 in float32, 2e-2
@@ -55,17 +57,17 @@ Phases, each of which raises on failure:
   4. convex main path, float64, through ``repro_torch.solve`` with
      fused=True:
      CentralVR-Sync (Algorithm 2) at p=8 on the paper's §6.2
-     ``dist-toy-logistic`` (n=5000 per worker, d=1000), 10 rounds, and
-     CentralVR (Algorithm 1) on ``millionsong`` (n=46371, d=90), 3
+     ``dist-toy-logistic`` (n=5000 per worker, d=1000), 5 rounds, and
+     CentralVR (Algorithm 1) on ``millionsong`` (n=46371, d=90), 2
      rounds (``MS_ROUNDS``: its unfused twin is the script's slowest
      run). vr_epoch must launch exactly once per fused epoch call (the
-     init epoch and each round: 11 and 4) and K1 never; the trajectory
+     init epoch and each round: 6 and 3) and K1 never; the trajectory
      must match the unfused run with the same visit orders to 1e-9;
      every rel must be finite and the last below the first;
   5. the rest of the convex family through ``repro_torch.solve``, each
      VR run fused and then unfused on the same draws: the paper's Fig. 1
      panel on ``toy-logistic`` (n 5000, d 20; CentralVR, SVRG with
-     snapshot last, SAGA, SGD; 5 epochs) and §6.2's
+     snapshot last, SAGA, SGD; 3 epochs) and §6.2's
      ``dist-toy-logistic`` at p=8 (CentralVR-Async round-robin, 2 rounds;
      D-SVRG, tau 2*ns, 3 rounds; D-SAGA with instant and with stale
      fetch, tau 100, 20 rounds; distributed SGD, EASGD and PS-SVRG, 2
@@ -84,12 +86,12 @@ Phases, each of which raises on failure:
      here on the same draws. §6.2's ``dist-toy-logistic`` over 8 ranks
      with the transport "auto" picks (gloo on one card, staged through
      host memory; NCCL refuses two ranks on one device), every VR run
-     fused: CentralVR-Sync (10 rounds), CentralVR-Async round-robin and
+     fused: CentralVR-Sync (5 rounds), CentralVR-Async round-robin and
      with speeds 1..8 (2 rounds), D-SVRG (tau 2*ns, 3 rounds), stale
      D-SAGA (tau 100, 20 rounds), distributed SGD, EASGD and PS-SVRG (2
      rounds each); CentralVR-Sync over NCCL at world = the card count
      (1 here, so p = 1) and Algorithm 1 on ``millionsong`` in a group of
-     one rank; Mamba2-130M at full width, 8 of its 24 layers
+     one rank; Mamba2-130M at full width, 4 of its 24 layers
      (``SPMD_LM_LAYERS``), W = 2, fused, over 2
      ranks sharing the card, 2 epochs from the seed of the vmap W = 2 run
      made here first. Gates: every rank on the card; each rank launched
@@ -102,7 +104,9 @@ Phases, each of which raises on failure:
      the vmap run's. ``[spmd]`` lines give the transport, world, the
      ranks' devices, walls and inner steps/s beside the vmap run's and
      the bytes each rank's collectives carried, for the record: on one
-     card they measure time-slicing and host staging, not scaling;
+     card they measure time-slicing and host staging, not scaling. The
+     convex spawn, the NCCL spawn and the LM run at once, so their walls
+     and the all-reduce probe are taken beside one another;
   5b. the sparse lazy driver (``sampling="sparse"``): (a) ``lazy_epoch``
      against its plain version, one epoch per case, every output within
      1e-10 of its largest magnitude: vr on and off x logistic and ridge
@@ -146,8 +150,8 @@ Phases, each of which raises on failure:
      2**20 sampled coordinates, to 5% in norm. Launches per step must be
      exactly K1 1, K2 (2L + 1 + 2L) * A = 18, K3 (L + L) * A = 8 (the
      recompute under remat relaunches K2 and K3). Each run then trains
-     10 more epochs (Mamba2-130M at full width 4, phase 6d's two widths
-     5), each timed, for its steps/s (median, least, most).
+     3 more epochs (Mamba2-130M at full width 1, phase 6d's two widths
+     2), each timed, for its steps/s (median, least, most).
      Then W=2 at ``qwen2-7b.reduced()``, fused against unfused, held the
      same way. Then Mamba2-130M at its full published width and depth (24
      SSD blocks, d 768, state 128, vocab 50280, tied head; 128,983,488
@@ -169,13 +173,13 @@ Phases, each of which raises on failure:
      seq 4096, both W 1, M 2, global batch 2, microbatch 1 (launches per
      step K1 1, K2 18 and 42, K3 8 and 4); then ``reduced()`` of each of
      the eight archs beyond Qwen2-7B and Mamba2-130M at W 2, seq 256,
-     global batch 4, microbatch 1, 3 timed epochs each. ``--archs`` runs
+     global batch 4, microbatch 1, 1 timed epoch each. ``--archs`` runs
      only the device phase, the build, phase 3's K3 cases in float32 and
      at hd 256 (recurrentgemma-2b's local shape among them), K1 at the
      MoE run's (1, 1,868,573,184) and this phase (with ``--profile``
      also the two full-width runs' profiles);
  6b. telemetry (``repro_torch.obs``): fused runs through ``solve`` on
-     ``dist-toy-logistic`` (p 8, d 1000) of Algorithm 2 (10 rounds),
+     ``dist-toy-logistic`` (p 8, d 1000) of Algorithm 2 (5 rounds),
      Algorithm 3 with speeds 1..8 (2 rounds) and stale D-SAGA (tau 100,
      20 rounds), each unrecorded, recorded, unrecorded, recorded on the
      same draws: x and rels bit-identical, vr_epoch launches equal (and
@@ -200,11 +204,13 @@ Phases, each of which raises on failure:
      the timed runs. ``--obs`` runs only the device phase, the build and
      this phase;
  6c. the process fleet, elasticity and checkpoints on
-     ``dist-toy-logistic`` (p 8, n 5000 a worker, d 1000, float64):
+     ``dist-toy-logistic`` (p 8, d 1000, float64; n cut from 5000 to
+     1000 a worker for the lanes and the local elastic run):
      ``python -m repro_torch.launch.distributed --nprocs 2 --workers 8
      --x64 --verify`` (two processes of four workers on the card, their
      data plane a TCPStore served by process 0) in five lanes started
-     together: Algorithm 3 round-robin and with speeds 1..8 (2 rounds),
+     together (in the full script, beside phase 6b's three processes):
+     Algorithm 3 round-robin and with speeds 1..8 (2 rounds),
      Algorithm 2 (3 rounds), an exit fault of process 1 at round 2 (3
      rounds; the run goes on at p 4) and a stall of process 1 at round 1
      that rejoins at round 2 (3 rounds). Each lane exits 0 only if its
@@ -261,13 +267,13 @@ Phases, each of which raises on failure:
      Lane 7b, tensor-parallel decode: Qwen2-7B at its full width and
      depth on the (data 1, model 2) mesh of 2 ranks sharing the card
      over gloo (``ServeEngine(mesh=...)``; each rank draws its shards
-     from seed 0 one leaf at a time and casts them once), phase 7's trace
-     in bfloat16 and its burst in float32. Gates: the float32 burst's ids
+     from seed 0 one leaf at a time and casts them once), phase 7's burst
+     in bfloat16 and in float32. Gates: the float32 burst's ids
      equal phase 7's float32 engine's, its prefill and every decode
      step's logits within 2**-7 of their largest magnitude; every
      request finished and every block free on both ranks; both ranks'
      ids equal; no kernel launched. Printed: how many bf16 requests
-     equal phase 7's ids, the decode step's device and wall ms, device
+     equal phase 7's bf16 engine's ids, the decode step's device and wall ms, device
      ops, gloo bytes and collectives a rank, a 128-token chunk's ms,
      tokens/s, latency, peak memory a rank;
   8. the per-step runtime and the meshes (``train/host_loop.py``,
@@ -278,23 +284,52 @@ Phases, each of which raises on failure:
      epochs of the epoch runner and one ``make_train_step`` step on its
      state, K1 / K2 / K3 counted per step; 8b the same config on the
      (data 2, model 2) mesh of 4 ranks sharing the card over gloo (FSDP
-     over 'data', tensor parallelism over 'model'), 2 steps, against 8a's
-     single-device run (losses within 2**-7, the sampled update within
-     5% in norm), every rank's K3 on 14 q heads and 2 kv heads, memory a
+     over 'data', tensor parallelism over 'model'), 1 step, against that
+     step on the (1, 1) mesh (losses within 2**-7, the sampled update
+     within 5% in norm), every rank's K3 on 14 q heads and 2 kv heads, memory a
      rank, wall and gloo bytes and collectives a step; 8c
      ``qwen2-7b.reduced()`` in float32 with CentralVR workers on 'data'
      (W 2, ``dp_replicated``) and TP inside, against the vmap W 2 epoch
      runner (losses and params within LM_TOL), the worker spread above 0
      after a local step and exactly 0 at each epoch boundary; 8d
      expert parallelism: qwen3-moe-30b-a3b's width cut to 2 layers
-     (1,868,573,184 params) with 8b's train config, first 3 steps of
-     ``make_train_step`` on the (1, 1) mesh, then 3 on (data 2, model 2)
+     (1,868,573,184 params) with 8b's train config, first 1 step of
+     ``make_train_step`` on the (1, 1) mesh, then 1 on (data 2, model 2)
      over 4 ranks (FSDP over 'data'; TP and the experts and router
      columns over 'model') against it by 8b's gates, every rank's K3 on
      16 q / 2 kv heads, 64 of the 128 experts of each layer a rank, K1
-     once a step a rank. ``--mesh`` runs only the device phase, the
-     build and this phase;
-  9. the ``kernels`` line: per kernel its launches on the main paths, its
+     once a step a rank. The single-device runs of 8b, 8c and 8d come
+     first, then one spawn of 4 ranks runs 8b, 8c and 8d in turn.
+     ``--mesh`` runs only the device phase, the build and this phase;
+  9. the tooling (``launch/dryrun.py``, ``roofline/*``,
+     ``repro_torch.examples``): lanes 8b and 8d (one
+     ``make_train_step`` step of phase 8's configs) and 7b (one decode
+     step of Qwen2-7B on (data 1, model 2) at phase 7's width and context)
+     dry-run on meta tensors over the stand-in mesh
+     (``launch.mesh.stand_in_mesh``), rank by rank; gated: collectives and
+     bytes a step a rank and params a rank equal to the lanes' counts on
+     the card in the same run (the full script) and to the counts the
+     card gave for these lanes (``DRYRUN_LANES``); printed beside each lane's
+     measured peak memory, the dry run's argument + temp bytes (plain
+     attention and plain autograd, not the fused path: no gate). One
+     production combo, ``qwen2-7b train_4k --mesh pod``, in a process of
+     its own started after the build (phase 2), beside the card's phases:
+     its record and its roofline line. The
+     four examples on the card at their own sizes (quickstart;
+     convex_distributed at p 8, n 1000 a worker, d 200, 12 rounds;
+     serve_batched; train_centralvr_100m ``--full --steps 16`` without a
+     checkpoint), each with
+     its wall time and its kernels' launches; gated: launches above 0 of
+     vr_epoch (quickstart, convex_distributed), K1 (quickstart), K2 and
+     K3 (quickstart, train_centralvr_100m), CentralVR's final rel below
+     SGD's (quickstart), the training loss falling (train), and the
+     default profile of train_centralvr_100m (head_dim 40) refused by
+     name before its first step. In the full script the examples run
+     beside phase 8's ranks. ``--tooling`` runs only the device
+     phase, the build, K2 and K3 against their plain versions (phase 3,
+     which holds the examples' shapes) and this phase (gated against
+     ``DRYRUN_LANES`` only: the lanes do not run);
+ 10. the ``kernels`` line: per kernel its launches on the main paths, its
      device time per launch and its plain version's (CUDA-graph replay of
      back-to-back calls at the main path's shape; CUDA events for K1 at
      the LM shapes and for vr_epoch), its bound on this card, the time of
@@ -339,7 +374,8 @@ device time by autograd node.
 only the device phase, the build and phase 6c; ``--archs`` the device
 phase, the build and phase 6d (see there); ``--serve`` the device
 phase, the build and phase 7; ``--mesh`` the device phase, the build and
-phase 8.
+phase 8; ``--tooling`` the device phase, the build, K2's and K3's
+comparisons and phase 9.
 
 ``--rates`` runs only the device phase, vr_epoch's device time at each
 convex path's shape, lazy_epoch's per epoch through its public wrapper
@@ -358,6 +394,7 @@ are full float32 (the convex path runs in float64, the LM in bfloat16).
 Without a CUDA device it exits with status 1 and prints no result. The
 last line of its output is ``{"ok": true, "device": {...}}``.
 """
+import atexit
 import itertools
 import json
 import subprocess
@@ -391,23 +428,28 @@ VR_OPS_PER_ELEMENT = 7
 # x, g, g_old, gbar, gtilde; writes x', gtilde' (gbar' only with SAGA, and
 # table' is g itself)
 VR_STREAMS = 7
-ROUNDS = 10
-# the Fig. 1 panel's epochs in phase 5: cut from ROUNDS (their unfused twins
-# took 33 s at 10) to make room for lanes 7b and 8d in the script's time
-TOY_EPOCHS = 5
-# millionsong's rounds in phase 4: cut from ROUNDS so that its unfused twin
-# (81.7-108.5 s at 10 rounds) leaves room for phase 7 in the script's time
-MS_ROUNDS = 3
+# Algorithm 2's rounds (phases 4, 4c, 6b): cut from 10 (its unfused twin
+# took 11.5 s) to keep the script in its time
+ROUNDS = 5
+# the Fig. 1 panel's epochs in phase 5: cut from 10 (their unfused twins
+# took 33 s) and then 5 (18 s) to keep the script in its time
+TOY_EPOCHS = 3
+# millionsong's rounds in phase 4: cut from 10 so that its unfused twin
+# (81.7-108.5 s at 10 rounds, 40.7 s at 3) leaves room in the script's time
+MS_ROUNDS = 2
 # RMSNorm: x*x, the sum, *r, *scale per element (float32 arithmetic)
 RMS_OPS_PER_ELEMENT = 4
 L2_BYTES = 50 * 2**20           # H100 L2
 LM_EPOCHS = 2
-LM_TIMING_EPOCHS = 10           # more epochs after the agreement check, timed
+# more epochs after the agreement check, timed (steps/s only, no gate),
+# cut from 10 to keep the script in its time
+LM_TIMING_EPOCHS = 3
 # timed epochs of the slower full-width runs, cut from LM_TIMING_EPOCHS to
-# keep the script in its time: Mamba2-130M (~2.4 s an epoch fused, ~2.7 s
-# unfused; 4 before lanes 7b and 8d) and phase 6d's two widths
-MAMBA_TIMING_EPOCHS = 2
-WIDE_TIMING_EPOCHS = 5
+# keep the script in its time: Mamba2-130M (~3.1 s an epoch fused, ~4.1 s
+# unfused; 4 before lanes 7b and 8d, 2 before phase 9) and phase 6d's two
+# widths
+MAMBA_TIMING_EPOCHS = 1
+WIDE_TIMING_EPOCHS = 2
 LM_SAMPLES = 1 << 20            # sampled param coordinates for agreement
 LOSS_RTOL = 2.0 ** -7           # two bf16 ulps
 UPDATE_RTOL = 0.05
@@ -526,7 +568,9 @@ def phase_compare(torch, np, vr_kernel, vr_ref, proxops):
 def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
     """K2 against its plain version; returns the largest bf16 error at the
     main-path shapes (qwen3-moe's d 2048: 2048 rows in lane 8d's (1, 1)
-    run and phase 6d, 1024 on each of 8d's ranks)."""
+    run and phase 6d, 1024 on each of 8d's ranks; phase 9's examples:
+    train_centralvr_100m --full's 512 rows of d 640, quickstart's LM's
+    128 rows of d 128)."""
     worst_at = {(1024, 3584): 0.0, (8192, 768): 0.0, (2048, 2048): 0.0,
                 (1024, 2048): 0.0}
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -536,6 +580,8 @@ def phase_compare_rmsnorm(torch, rms_kernel, rms_ref):
             (8192, 768, torch.bfloat16, torch.bfloat16, 0),
             (2048, 2048, torch.bfloat16, torch.bfloat16, 0),
             (1024, 2048, torch.bfloat16, torch.bfloat16, 0),
+            (512, 640, torch.bfloat16, torch.bfloat16, 0),
+            (128, 128, torch.bfloat16, torch.bfloat16, 0),
             (37, 3584, torch.bfloat16, torch.float32, 0),
             (512, 128, torch.bfloat16, torch.bfloat16, 0),
             (64, 1001, torch.bfloat16, torch.bfloat16, 0),
@@ -565,7 +611,9 @@ def phase_compare_flash(torch, fa_kernel, fa_ref):
     """K3 bf16 against its plain version at the main paths' shapes: the
     Qwen2 width (28 / 4 heads, and 14 / 2 a rank in lane 8b), qwen3-moe's
     group of 8 (32 / 4 heads at S 2048 in phase 6d and S 1024 in lane
-    8d's (1, 1) run, 16 / 2 on each of 8d's ranks), and smaller and
+    8d's (1, 1) run, 16 / 2 on each of 8d's ranks), phase 9's examples
+    (train_centralvr_100m --full's group of 5, 10 / 2 heads at hd 64 and
+    S 256; quickstart's LM at S 64, 4 / 2 heads, hd 32), and smaller and
     windowed cases; returns the error at the Qwen2 width."""
     worst = 0.0
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -582,7 +630,9 @@ def phase_compare_flash(torch, fa_kernel, fa_ref):
                                  (2, 200, 28, 4, 128, None),
                                  (2, 200, 28, 4, 64, None),
                                  (1, 2048, 28, 4, 128, None),
-                                 (1, 2048, 28, 4, 128, 200)):
+                                 (1, 2048, 28, 4, 128, 200),
+                                 (2, 256, 10, 2, 64, None),
+                                 (2, 64, 4, 2, 32, None)):
         q, k, v = (torch.randn(B, S, n, hd, generator=g, device="cuda")
                    .to(torch.bfloat16) for n in (H, KV, KV))
         out = fa_kernel.flash_attention(q, k, v, window=win)
@@ -1614,7 +1664,7 @@ def phase_lm(torch, kernels):
 # Phase 6d: the other block kinds and archs
 # ---------------------------------------------------------------------------
 
-ARCHS_TIMING_EPOCHS = 3         # timed epochs of each reduced arch's run
+ARCHS_TIMING_EPOCHS = 1         # timed epochs of each reduced arch's run
 LM_PATH_KEYS = ("label", "counts", "per_step", "steps", "steps_s",
                 "unfused_steps_s", "peak_bytes", "unfused_peak_bytes",
                 "loss_err", "update_err")   # an LM run in the result lines
@@ -1681,11 +1731,14 @@ def phase_archs(torch, kernels):
 # ---------------------------------------------------------------------------
 
 SPMD_TOL = 1e-9                 # against the vmap fused run, relative
-SPMD_PS_SVRG_N = 125            # PS-SVRG's n per worker in phase 4c
+# PS-SVRG's n per worker in phase 4c: each of its 2*n server steps a round
+# waits for an all-reduce over gloo (505 of them took 12.3 s at n 125)
+SPMD_PS_SVRG_N = 50
 SPMD_PROBE_CALLS = 100          # all-reduces timed after the convex runs
 # Mamba2-130M's layers in phase 4c's LM run: cut from its 24 (whose run
-# over 2 ranks and its vmap twin took ~55 s) to keep the script in its time
-SPMD_LM_LAYERS = 8
+# over 2 ranks and its vmap twin took ~55 s), then from 8 (~32 s), to keep
+# the script in its time
+SPMD_LM_LAYERS = 4
 LM_TOL = dict(rtol=3e-5, atol=1e-6)   # the CPU tests' LM tolerance
 
 
@@ -1774,8 +1827,8 @@ def spmd_convex_runs(torch):
 
 def spmd_world_runs(torch, world):
     """The NCCL run, CentralVR-Sync on ``dist-toy-logistic``'s workers cut
-    to ``world`` (the card count), 10 rounds fused; and, in a group of one
-    rank, Algorithm 1 on ``millionsong`` (10 epochs, fused)."""
+    to ``world`` (the card count), ROUNDS rounds fused; and, in a group of
+    one rank, Algorithm 1 on ``millionsong`` (ROUNDS epochs, fused)."""
     import dataclasses
 
     from repro_torch.configs.paper_convex import PRESETS
@@ -2027,12 +2080,40 @@ def spmd_lm(torch, mesh):
                 carried_bytes=got["carried_bytes"])
 
 
+def in_thread(fn, *args, **kw):
+    """Start ``fn(*args, **kw)`` in a thread of its own; returns a
+    function that waits for it and gives its result, or raises its
+    error. For spawns whose ranks can run beside this process's work."""
+    import threading
+
+    out = {}
+
+    def body():
+        try:
+            out["value"] = fn(*args, **kw)
+        except BaseException as e:      # raised again in the waiter
+            out["error"] = e
+
+    thread = threading.Thread(target=body, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return wait
+
+
 def phase_spmd(torch, kernels):
     """Phase 4c: the spmd backend on the card. The convex runs over 8
     ranks (``spawn_workers``; the transport that "auto" picks, gloo on
     one card), Algorithm 1 in a group of one rank, CentralVR-Sync over
     NCCL at world = the card count, and Mamba2-130M over 2 ranks; each
-    held against the vmap run in this process on the same draws."""
+    held against the vmap run in this process on the same draws. On one
+    card the convex spawn, the NCCL spawn and the LM (its vmap twin here,
+    then its 2 ranks) run at once: their start-ups overlap, and the
+    walls and the all-reduce probe are taken beside one another."""
     from repro_torch.launch import mesh
 
     t0 = time.perf_counter()
@@ -2047,17 +2128,21 @@ def phase_spmd(torch, kernels):
     rule = mesh.pick_transport("auto", torch.device("cuda", 0), p)
     log(f"[spmd] transport rule: {rule} for {p} ranks on {world} card(s), "
         f"nccl for {world} rank(s)")
-    ranks = mesh.spawn_workers(p, spmd_rank_convex, host[:len(convex)])
+    convex_ranks = in_thread(mesh.spawn_workers, p, spmd_rank_convex,
+                             host[:len(convex)])
+    if world == 1:
+        nccl_ranks = in_thread(mesh.spawn_workers, 1, spmd_rank_convex,
+                               host[-2:], transport="nccl")
+    lm = spmd_lm(torch, mesh)
+    ranks = convex_ranks()
     probe = [r.pop()["ms"] for r in ranks]
     log(f"[spmd] one all-reduce of a (1000,) float64 vector over {p} ranks "
         f"({ranks[0][0]['transport']}, staged through pinned host memory): "
         f"{max(probe)!r} ms (slowest rank's mean over {SPMD_PROBE_CALLS})")
     recs = spmd_check(torch, convex, vmap[:len(convex)], ranks)
     if world == 1:
-        ranks = mesh.spawn_workers(1, spmd_rank_convex, host[-2:],
-                                   transport="nccl")
         recs += spmd_check(torch, [sync, alg1], vmap[-2:],
-                           [r[:-1] for r in ranks])
+                           [r[:-1] for r in nccl_ranks()])
     else:
         ranks = mesh.spawn_workers(world, spmd_rank_convex, host[-2:-1],
                                    transport="nccl")
@@ -2066,7 +2151,6 @@ def phase_spmd(torch, kernels):
         ranks = mesh.spawn_workers(1, spmd_rank_convex, host[-1:])
         recs += spmd_check(torch, [alg1], vmap[-1:], [r[:-1] for r in ranks])
     recs.append(dict(label="all-reduce probe", world=p, ms=max(probe)))
-    lm = spmd_lm(torch, mesh)
     launches = {"vr_epoch": sum(sum(r[4]) for r in every)}
     for name, n in lm["counts"][0].items():
         launches[name] = launches.get(name, 0) + n * len(lm["counts"])
@@ -2314,6 +2398,7 @@ def obs_start(label, argv, out_dir=OBS_OUT):
         proc = subprocess.Popen([sys.executable, *argv], stdout=out,
                                 stderr=subprocess.STDOUT, text=True,
                                 env=_env(), cwd=str(ROOT))
+    atexit.register(_stop, proc)
     return label, proc, time.perf_counter(), path
 
 
@@ -2361,7 +2446,7 @@ def obs_record(label, record, prof):
     return schema.load_rows(str(record)), traces
 
 
-def phase_obs(torch, kernels):
+def phase_obs(torch, kernels, beside=None):
     """Phase 6b: telemetry. Fused runs of Algorithms 2, 3 (speeds 1..8)
     and stale D-SAGA on ``dist-toy-logistic``, each unrecorded and
     recorded on the same draws (``obs_check_run``) and the cold
@@ -2369,7 +2454,8 @@ def phase_obs(torch, kernels):
     a second build on the same --compile-cache directory, the solver's
     command line sweeping the registry with --obs, --json and --profile,
     and the train launcher at Mamba2-130M's full width with --obs and
-    --profile."""
+    --profile. ``beside`` is called once these three have started (the
+    full script starts phase 6c's launcher lanes there)."""
     import gc
     import shutil
 
@@ -2402,6 +2488,8 @@ def phase_obs(torch, kernels):
                 "-m", "repro_torch.launch.train", *OBS_TRAIN, "--obs",
                 str(train_rec), "--profile",
                 str(OBS_OUT / "train-mamba2-prof")])]
+    if beside is not None:
+        beside()
     walls = [obs_wait(job) for job in jobs]
 
     warm = [r for r in schema.load_rows(str(warm_path))
@@ -2461,13 +2549,16 @@ def phase_obs(torch, kernels):
 # ---------------------------------------------------------------------------
 
 FLEET_OUT = ROOT / "build" / "fleet_smoke"  # records, logs, checkpoints
-# dist-toy-logistic (logistic, n 5000 a worker, d 1000, p 8, float64) over
-# two processes of four workers on the card, through the launcher; an
-# unfused event takes about 1 s on the card and --verify reruns every
-# event in the launcher, so the rounds are cut (FLEET_LANES)
+# dist-toy-logistic (logistic, d 1000, p 8, float64) over two processes
+# of four workers on the card, through the launcher; an unfused event of
+# 5000 steps took about 1 s on the card and --verify reruns every event in
+# the launcher, so the rounds are cut (FLEET_LANES) and n a worker is cut
+# from the preset's 5000 to FLEET_N (the lanes and the local elastic run
+# took 90 s and 37 s at 5000)
 FLEET_HB_S = 10.0               # the heartbeat wait, the launcher's default
-FLEET_SIZE = ("--nprocs", "2", "--workers", "8", "--n", "5000", "--d",
-              "1000", "--x64", "--verify", "--timeout", "600")
+FLEET_N = 1000
+FLEET_SIZE = ("--nprocs", "2", "--workers", "8", "--n", str(FLEET_N),
+              "--d", "1000", "--x64", "--verify", "--timeout", "600")
 FLEET_SPEEDS = ",".join(str(s) for s in range(1, 9))
 ALL_8 = list(range(8))
 # (name, flags, transitions (round, live workers) process 0 must observe)
@@ -2738,34 +2829,47 @@ def fleet_lm(torch, kernels):
                 launches=steps_launched)
 
 
-def phase_fleet(torch, kernels):
-    """Phase 6c: the launcher's five lanes at dist-toy-logistic's width
-    (two processes of four workers each on the card, --verify), started
-    together as processes; meanwhile, here, the local elastic run fused
-    and unfused, the elastic and SyncState checkpoints and the Mamba2-130M
-    checkpoint and resume. Returns the phase's record, its kernel
-    launches by name under ``launches``."""
+def fleet_start():
+    """Phase 6c's five launcher lanes, started together as processes
+    (``obs_start``); returns their jobs."""
     import shutil
 
-    from repro_torch.configs.paper_convex import PRESETS
-
-    t0 = time.perf_counter()
     shutil.rmtree(FLEET_OUT, ignore_errors=True)
     FLEET_OUT.mkdir(parents=True)
-    log("[fleet] cuts: the lanes run rounds 2 (async round-robin, async "
-        "speeds 1..8), 3 (sync; exit fault at round 2; stall at round 1, "
-        "back at round 2) of the 10 the convex path runs; the local "
-        "elastic run 3 rounds; the elastic checkpoint run 4; the LM 2 "
-        "epochs of 2 steps")
-    jobs = [obs_start(name, [
+    log(f"[fleet] cuts: n {FLEET_N} a worker (the preset's 5000); the lanes "
+        "run rounds 2 (async round-robin, async speeds 1..8), 3 (sync; "
+        "exit fault at round 2; stall at round 1, back at round 2) of the "
+        f"{ROUNDS} the convex path runs; the local elastic run 3 rounds; "
+        "the elastic checkpoint run 4 (n 5000); the LM 2 epochs of 2 steps")
+    return [obs_start(name, [
         "-m", "repro_torch.launch.distributed", *FLEET_SIZE,
         "--hb-timeout", str(FLEET_HB_S), *flags,
         "--run-prefix", name, "--json", str(FLEET_OUT / f"{name}.json"),
         "--obs", str(FLEET_OUT / name), "--logdir",
         str(FLEET_OUT / f"{name}-logs")], FLEET_OUT)
         for name, flags, _ in FLEET_LANES]
+
+
+def phase_fleet(torch, kernels, jobs=None):
+    """Phase 6c: the launcher's five lanes at dist-toy-logistic's width
+    (two processes of four workers each on the card, --verify), started
+    together as processes (``fleet_start``; ``jobs``: already started,
+    as the full script starts them beside phase 6b's processes);
+    meanwhile, here, the local elastic run fused and unfused, the elastic
+    and SyncState checkpoints and the Mamba2-130M checkpoint and resume.
+    Returns the phase's record, its kernel launches by name under
+    ``launches``."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs.paper_convex import PRESETS
+
+    t0 = time.perf_counter()
+    if jobs is None:
+        jobs = fleet_start()
     cfg = PRESETS["dist-toy-logistic"]
-    elastic_rec = fleet_elastic(torch, kernels, cfg)
+    elastic_rec = fleet_elastic(torch, kernels,
+                                dataclasses.replace(cfg, n=FLEET_N))
     ckpt_rec = fleet_checkpoints(torch, cfg)
     lm_rec = fleet_lm(torch, kernels)
     walls = [obs_wait(job, tag="fleet") for job in jobs]
@@ -2913,7 +3017,7 @@ def serve_burst(torch, eng, cfg, gate):
     if not gate:
         log(f"[serve] {tag} engine against legacy: ids equal in full for "
             f"{same} of {len(burst)} requests (not gated)")
-        return out
+        return dict(out, _ids=eids)
 
     S, G = SERVE_BURST["prompt_len"], SERVE_BURST["max_new"]
     serve_step, _ = tstep.make_serve_step(cfg)
@@ -3221,6 +3325,7 @@ def phase_serve(torch, kernels, profile=False):
         f"{[r.rid for r in alone_reqs]} served alone equal their ids in the "
         "batch, bit for bit")
     burst = [serve_burst(torch, eng, cfg, gate=False)]
+    ids_bf16 = burst[0].pop("_ids")
     timing = serve_time(torch, eng, kernels, profile)
     free = eng.allocator.available() == eng.geo.num_blocks - 1
     if eng.allocator.in_use or not free:
@@ -3254,7 +3359,7 @@ def phase_serve(torch, kernels, profile=False):
                                     "recurrentgemma-2b reduced", 40, 8))
     gc.collect()
     torch.cuda.empty_cache()
-    tp = serve_tp(torch, ids, ref32)
+    tp = serve_tp(torch, ids_bf16, ref32)
     seconds = time.perf_counter() - t_phase
     log(f"[path] phase 7 (serve) in {seconds:.1f} s")
     return dict(qwen2_7b=dict(params=n_params, layers=cfg.num_layers,
@@ -3333,10 +3438,11 @@ def serve_tp_rank(group):
     """In a rank of lane 7b: Qwen2-7B at its full width and depth on the
     (data 1, model 2) mesh, the rank's shards drawn from seed 0 on the
     card one leaf at a time. The bf16 engine (cast once) over phase 7's
-    trace, then the decode step and a chunk timed (``serve_tp_time``);
-    freed; then the float32 engine over the burst with its logits
-    recorded (``serve_recorded``). Kernel counts set to 0 before each
-    run (the plain engine launches none)."""
+    burst (its 16-request trace took 46-66 s a rank over gloo, time the
+    script cannot spare), then the decode step and a chunk timed
+    (``serve_tp_time``); freed; then the float32 engine over the burst
+    with its logits recorded (``serve_recorded``). Kernel counts set to
+    0 before each run (the plain engine launches none)."""
     import dataclasses
     import gc
 
@@ -3366,11 +3472,10 @@ def serve_tp_rank(group):
                    compile_s=eng.warmup())
         reset_counts(kernels)
         c0, b0 = m.collectives, m.carried_bytes
+        reqs = synthetic_trace(SERVE_BURST_N, **SERVE_BURST)
         if dtype == "bf16":
-            reqs = synthetic_trace(SERVE_REQUESTS, **SERVE_TRACE)
             rep = eng.run(reqs)
         else:
-            reqs = synthetic_trace(SERVE_BURST_N, **SERVE_BURST)
             rep, logs = serve_recorded(eng, reqs)
             rec["logs"] = {k: [t.cpu() for t in v] for k, v in logs.items()}
         rec.update(counts=read_counts(kernels), ids=serve_ids(rep),
@@ -3392,15 +3497,15 @@ def serve_tp_rank(group):
     return out
 
 
-def serve_tp(torch, ids16, ref32):
+def serve_tp(torch, ids_bf16, ref32):
     """Lane 7b: SERVE_TP ranks sharing the card over gloo, against phase
     7's single-device engine: gated, the float32 burst's ids equal to
     phase 7's float32 engine's and its prefill and decode logits within
     SERVE_TOL of their largest magnitude, every request finished and
     every block free on every rank, both ranks' ids bit for bit, no
-    kernel launched; printed, how many of the bf16 trace's requests
-    equal phase 7's ids (not gated), the timings, gloo traffic and peak
-    memory a rank."""
+    kernel launched; printed, how many of the bf16 burst's requests
+    equal phase 7's bf16 engine's ids (``ids_bf16``; not gated), the
+    timings, gloo traffic and peak memory a rank."""
     from repro_torch.launch import mesh as meshlib
 
     t0 = time.perf_counter()
@@ -3432,7 +3537,7 @@ def serve_tp(torch, ids16, ref32):
                     zip(got["prefill"], want["prefill"]))
     step_err = max(serve_rel_err(torch, g, w.cpu()) for g, w in
                    zip(got["decode"], want["decode"]))
-    agree = sum(b16["ids"][rid] == ids16[rid] for rid in ids16)
+    agree = sum(b16["ids"][rid] == ids_bf16[rid] for rid in ids_bf16)
     for r, rec in enumerate(ranks):
         x = rec["bf16"]
         log(f"[serve] 7b {label}: rank {r} {rec['coords']} on "
@@ -3440,7 +3545,7 @@ def serve_tp(torch, ids16, ref32):
             f"(bf16), drawn and cast in {x['init_s']!r} s; peak memory "
             f"{x['peak_bytes']} bytes (bf16), {rec['float32']['peak_bytes']} "
             f"(float32 burst)")
-    serve_summary_line(f"7b {label} bf16 trace", b16["summary"],
+    serve_summary_line(f"7b {label} bf16 burst", b16["summary"],
                        b16["compile_s"])
     serve_summary_line(f"7b {label} float32 burst", f32["summary"],
                        f32["compile_s"])
@@ -3454,8 +3559,8 @@ def serve_tp(torch, ids16, ref32):
     log(f"[serve] 7b {label}: float32 burst ids equal the single-device "
         f"engine's: True; prefill logits within {first_err!r}, decode "
         f"logits within {step_err!r} of the largest magnitude (bound "
-        f"{SERVE_TOL!r}); both ranks' ids equal; bf16 trace ids equal "
-        f"phase 7's for {agree} of {len(ids16)} requests (not gated)")
+        f"{SERVE_TOL!r}); both ranks' ids equal; bf16 burst ids equal "
+        f"phase 7's for {agree} of {len(ids_bf16)} requests (not gated)")
     if not (first_err <= SERVE_TOL and step_err <= SERVE_TOL):
         raise AssertionError(f"[serve] 7b: TP and single-device logits "
                              f"differ by {first_err}, {step_err}")
@@ -3479,12 +3584,16 @@ def serve_tp(torch, ids16, ref32):
 # ---------------------------------------------------------------------------
 
 MESH_STEPS = 5                  # lane 8a: 2*M*K + 1, not a whole epoch count
-# lane 8b: one epoch (M*K = 2 steps), cut from 4 (its gloo steps took 13-28
-# s each) to make room for lanes 7b and 8d in the script's time
-MESH_FSDP_STEPS = 2
+# lane 8b: one step, cut from 4 and then 2 (its gloo steps took 13-28 s
+# each) to keep the script in its time
+MESH_FSDP_STEPS = 1
 MESH_WORKER_STEPS = 4           # lane 8c
 MESH_RANKS = 4                  # (data 2, model 2), sharing the card over gloo
-MESH_MOE_STEPS = 3              # lane 8d
+# lane 8d: one step, cut from 3 and then 2 (18-31 s each over gloo) to keep
+# the script in its time. 8b's and 8d's updates are a first step's, g
+# uncorrected (the table and gbar start at zero); lane 8c (TP without
+# FSDP) holds the VR correction with a filled table on a sharded mesh
+MESH_MOE_STEPS = 1
 # lane 8d's router (each layer's whole leaf) and expert leaves (sampled)
 # against the (1, 1) run: bf16 rounding reroutes 5-10% of the token rows
 # (a flipped token moves its whole contribution), so each leaf is held
@@ -3580,8 +3689,9 @@ def mesh_single(torch, kernels):
     rank, (1, 1)) for MESH_STEPS steps, fused, counts set to 0 just
     before; held bit for bit against the epoch runner's two epochs from
     the same seed followed by one ``make_train_step`` step on its state.
-    Returns the record, with the epoch runner's losses and sampled params
-    at step 0 and after MESH_FSDP_STEPS (lane 8b's yardstick)."""
+    Returns the record, with lane 8b's yardstick: the sampled params at
+    step 0, and the losses and sampled params of MESH_FSDP_STEPS
+    ``make_train_step`` steps on the (1, 1) mesh from the same seed."""
     import gc
 
     from repro_torch.launch import mesh as meshlib
@@ -3597,13 +3707,12 @@ def mesh_single(torch, kernels):
     torch.cuda.empty_cache()
     run, _ = tstep.make_epoch_runner(cfg, tcfg, 1, fused=True)
     state = tstep.init_train_state(cfg, tcfg, 1)
-    p0 = state.params[0, sample.to(state.params.device)].double().cpu()
-    losses, after = [], {}
+    idx = sample.to(state.params.device)
+    p0 = state.params[0, idx].double().cpu()
+    losses = []
     for e in range(2):
         state, ls = run(state)
         losses.append(ls)
-        after[len(ls) * (e + 1)] = state.params[
-            0, sample.to(state.params.device)].double().cpu()
     epoch_losses = torch.cat(losses).tolist()
     step, _ = tstep.make_train_step(cfg, tcfg, meshlib.make_test_mesh(),
                                     fused=True)
@@ -3612,6 +3721,13 @@ def mesh_single(torch, kernels):
         state, out = step(state, toks[0, s % 2])
         epoch_losses.append(float(out["loss"]))
     want = state.params.cpu()
+    del state
+    state = tstep.init_train_state(cfg, tcfg, 1)
+    yard = []
+    for s in range(MESH_FSDP_STEPS):
+        state, out = step(state, toks[0, s % 2])
+        yard.append(float(out["loss"]))
+    p_end = state.params[0, idx].double().cpu()
     del state, run, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3647,8 +3763,7 @@ def mesh_single(torch, kernels):
     return dict(label=label, losses=res.losses, steps=MESH_STEPS,
                 wall_s=res.wall_time, steps_s=MESH_STEPS / res.wall_time,
                 peak_bytes=peak, counts=counts, eval_loss=res.final_eval_loss,
-                epoch_losses=epoch_losses[:MESH_FSDP_STEPS], p0=p0,
-                p_end=after[MESH_FSDP_STEPS],
+                epoch_losses=yard, p0=p0, p_end=p_end,
                 sample=sample.numpy())
 
 
@@ -3710,7 +3825,6 @@ def mesh_rank_fsdp(group, sample, lane="8b", replay=None):
 
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.launch import mesh as meshlib
-    from repro_torch.train import step as tstep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3723,6 +3837,19 @@ def mesh_rank_fsdp(group, sample, lane="8b", replay=None):
         shapes.add((tuple(q.shape), tuple(k.shape)))
         return launch(q, k, v, **kw)
     fa_kernel.flash_attention = spy
+    recs, undo = routing_spy(torch, replay) if cfg.is_moe else ([], None)
+    try:
+        return _mesh_rank_fsdp(torch, m, cfg, tcfg, steps, sample, shapes,
+                               recs)
+    finally:
+        fa_kernel.flash_attention = launch
+        if undo is not None:
+            undo()
+
+
+def _mesh_rank_fsdp(torch, m, cfg, tcfg, steps, sample, shapes, recs):
+    from repro_torch.train import step as tstep
+
     step, meta = tstep.make_train_step(cfg, tcfg, m, fused=True)
     pl = meta["placement"]
     state = tstep.init_train_state(cfg, tcfg, 1, mesh=m)
@@ -3731,7 +3858,6 @@ def mesh_rank_fsdp(group, sample, lane="8b", replay=None):
     r0 = router_leaves(pl.layout, state.params[0])
     toks = mesh_tokens(cfg, tcfg, 1)
     kernels = kernel_modules()
-    recs, _ = routing_spy(torch, replay) if cfg.is_moe else ([], None)
     marks = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3760,22 +3886,39 @@ def mesh_rank_fsdp(group, sample, lane="8b", replay=None):
                 routing=recs, marks=marks, router0=r0, router_end=r_end)
 
 
-def mesh_fsdp_tp(torch, kernels, single, lane="8b", replay=None):
+def mesh_rank_lanes(group, samples):
+    """In a rank of phase 8's one spawn: lanes 8b, 8c and 8d in turn
+    (``mesh_rank_fsdp``, ``mesh_rank_workers``), each freed before the
+    next, one start-up for the three; each lane's record with its wall
+    in the rank."""
+    import gc
+
+    import torch
+
+    out = {}
+    for lane in ("8b", "8c", "8d"):
+        t0 = time.perf_counter()
+        out[lane] = (mesh_rank_workers(group) if lane == "8c" else
+                     mesh_rank_fsdp(group, samples[lane], lane))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[lane]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_fsdp_check(torch, single, ranks, lane="8b", replay=None):
     """Lane 8b or 8d: MESH_RANKS ranks on the card, each with its shards,
     against the lane's single-device run of the same seed and tokens
-    (8a's, or ``mesh_moe_single``'s): losses within LOSS_RTOL (relative),
-    the sampled params' update within UPDATE_RTOL in norm, every rank's
-    K3 on its heads (8b: 14 q / 2 kv of 28 / 4; 8d: 16 q / 2 kv of 32 /
-    4), launches per step as the single-device step's (K1 once), and in
-    8d 64 of the 128 experts of each layer a rank. With ``replay`` (8d),
-    every rank routes as the (1, 1) run did (``routing_spy``)."""
-    from repro_torch.launch import mesh as meshlib
-
+    (``mesh_single``'s yardstick, or ``mesh_moe_single``'s): losses
+    within LOSS_RTOL (relative), the sampled params' update within
+    UPDATE_RTOL in norm, every rank's K3 on its heads (8b: 14 q / 2 kv
+    of 28 / 4; 8d: 16 q / 2 kv of 32 / 4), launches per step as the
+    single-device step's (K1 once), and in 8d 64 of the 128 experts of
+    each layer a rank. With ``replay`` (8d), every rank routed as the
+    (1, 1) run did (``routing_spy``)."""
     cfg, _, steps, label = mesh_lane(lane)
     if replay is not None:
         label += ", routing pinned to the (1, 1) run's"
-    ranks = meshlib.spawn_workers(MESH_RANKS, mesh_rank_fsdp,
-                                  single["sample"], lane, replay)
     want_losses = torch.tensor(single["epoch_losses"][:steps],
                                dtype=torch.float64)
     expect = {k: v * steps for k, v in expected_launches(cfg, 2, 1).items()}
@@ -4034,12 +4177,10 @@ def mesh_rank_workers(group):
                 shape=list(state.params.shape))
 
 
-def mesh_workers(torch, kernels):
-    """Lane 8c: MESH_RANKS ranks, W 2 on 'data', against the port's vmap
-    W 2 epoch runner on the same tokens and seed (run here first): losses
-    and params within LM_TOL, the spread above 0 after a local step and
-    exactly 0 at each epoch boundary."""
-    from repro_torch.launch import mesh as meshlib
+def mesh_workers_ref(torch):
+    """Lane 8c's yardstick: the port's vmap W 2 epoch runner on the
+    lane's tokens and seed, MESH_WORKER_STEPS steps: (losses, params),
+    float64 on the host."""
     from repro_torch.train import step as tstep
 
     _, (cfg, tcfg) = mesh_configs()
@@ -4049,10 +4190,15 @@ def mesh_workers(torch, kernels):
     for _ in range(MESH_WORKER_STEPS // 2):
         state, ls = run(state)
         losses.append(ls)
-    want_losses = torch.cat(losses).double().cpu()
-    want = state.params.double().cpu()
-    del state, run
-    ranks = meshlib.spawn_workers(MESH_RANKS, mesh_rank_workers)
+    return torch.cat(losses).double().cpu(), state.params.double().cpu()
+
+
+def mesh_workers_check(torch, ref, ranks):
+    """Lane 8c: MESH_RANKS ranks (``mesh_rank_workers``), W 2 on 'data',
+    against ``mesh_workers_ref``: losses and params within LM_TOL, the
+    spread above 0 after a local step and exactly 0 at each epoch
+    boundary, K1 once a step."""
+    want_losses, want = ref
     label = "qwen2-7b reduced f32 (data 2, model 2) workers data"
     for r, rec in enumerate(ranks):
         sp = rec["spreads"]
@@ -4076,25 +4222,49 @@ def mesh_workers(torch, kernels):
                 counts=[r["counts"] for r in ranks])
 
 
-def phase_mesh(torch, kernels, pinned=False):
+def phase_mesh(torch, kernels, pinned=False, beside=None):
     """Phase 8: the per-step runtime (8a), FSDP and TP over 4 ranks at the
     Qwen2-7B width (8b), Algorithm 2 across 'data' with TP inside (8c),
-    and expert parallelism at the qwen3-moe-30b-a3b width (8d: its
-    single-device run, then 4 ranks; ``pinned``: 4 ranks again with the
-    routing pinned to the single-device run's, which parts what routing
-    flips add to 8d's gap from what the arithmetic adds)."""
+    and expert parallelism at the qwen3-moe-30b-a3b width (8d). The
+    single-device yardsticks of 8b, 8c and 8d run here first, one after
+    the other, then one spawn of MESH_RANKS ranks runs the three lanes
+    (``mesh_rank_lanes``); ``beside`` runs here while they do (the full
+    script runs phase 9's examples there). ``pinned``: 4 ranks again with
+    8d's routing pinned to the single-device run's, which parts what
+    routing flips add to 8d's gap from what the arithmetic adds."""
+    import gc
+
+    from repro_torch.launch import mesh as meshlib
+
     t0 = time.perf_counter()
     single = mesh_single(torch, kernels)
-    fsdp = mesh_fsdp_tp(torch, kernels, single)
-    workers = mesh_workers(torch, kernels)
-    t8d = time.perf_counter()
+    workers_ref = mesh_workers_ref(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_single = mesh_moe_single(torch, kernels)
-    moe = mesh_fsdp_tp(torch, kernels, moe_single, "8d")
+    t_ranks = time.perf_counter()
+    ranks = in_thread(meshlib.spawn_workers, MESH_RANKS, mesh_rank_lanes, {
+        "8b": single["sample"], "8d": moe_single["sample"]})
+    if beside is not None:
+        beside()
+    ranks = ranks()
+    walls = {lane: max(r[lane]["wall_s"] for r in ranks)
+             for lane in ("8b", "8c", "8d")}
+    log(f"[path] lanes 8b, 8c, 8d: one spawn of {MESH_RANKS} ranks in "
+        f"{time.perf_counter() - t_ranks:.1f} s (in the ranks, slowest: "
+        f"{ {k: round(v, 1) for k, v in walls.items()} } s)")
+    fsdp = mesh_fsdp_check(torch, single, [r["8b"] for r in ranks])
+    workers = mesh_workers_check(torch, workers_ref,
+                                 [r["8c"] for r in ranks])
+    moe = mesh_fsdp_check(torch, moe_single, [r["8d"] for r in ranks],
+                          "8d")
+    del ranks
     if pinned:
-        moe["pinned"] = mesh_fsdp_tp(torch, kernels, moe_single, "8d",
-                                     moe_single["routing"])
-    log(f"[path] lane 8d (expert parallelism) in "
-        f"{time.perf_counter() - t8d:.1f} s")
+        ranks = meshlib.spawn_workers(MESH_RANKS, mesh_rank_fsdp,
+                                      moe_single["sample"], "8d",
+                                      moe_single["routing"])
+        moe["pinned"] = mesh_fsdp_check(torch, moe_single, ranks, "8d",
+                                        moe_single["routing"])
     launches = dict(single["counts"])
     for c in (fsdp["counts"] + workers["counts"] + [moe_single["counts"]]
               + moe["counts"]):
@@ -4106,7 +4276,229 @@ def phase_mesh(torch, kernels, pinned=False):
                           for rec in (single, moe_single))
     log(f"[path] phase 8 (mesh) in {time.perf_counter() - t0:.1f} s")
     return dict(single=single, fsdp_tp=fsdp, workers=workers,
-                moe_single=moe_single, moe=moe, launches=launches)
+                moe_single=moe_single, moe=moe, launches=launches,
+                rank_walls_s=walls)
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the dry run, the roofline and the examples
+# ---------------------------------------------------------------------------
+
+# collectives and bytes a step a rank, params a rank, of lanes 8b, 8d and 7b
+# as the card counted them (NVIDIA H100 80GB HBM3, 700.00 W; phases 7 and 8)
+DRYRUN_LANES = {"8b": (140, 5842792428, 390880256),
+                "8d": (164, 8361021420, 468331008),
+                "7b": (58, 8192000, 3859304960)}
+TOOLING_OUT = ROOT / "build" / "tooling_smoke"
+# two epochs of 8 steps (the second applies the VR correction with a
+# filled table): 96 steps took 50-73 s on the card's host-bound eager
+# path, time the script's 1200 s cannot spare
+TRAIN_EXAMPLE_STEPS = 16
+
+
+def tooling_lanes(torch, mesh_rec=None, serve_rec=None):
+    """Lanes 8b, 8d and 7b on the stand-in mesh, every rank, gated against
+    ``DRYRUN_LANES`` and, given phase 8's and 7's records, against the
+    counts their ranks carried in this run."""
+    from repro_torch.config import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+
+    measured = {}
+    if mesh_rec is not None:
+        for lane, key in (("8b", "fsdp_tp"), ("8d", "moe")):
+            r = mesh_rec[key]
+            measured[lane] = dict(counts=(r["collectives"],
+                                          r["carried_bytes"], r["local_n"]),
+                                  peak=r["peak_bytes"])
+    if serve_rec is not None:
+        b16 = serve_rec["tp"]["bf16"]
+        measured["7b"] = dict(counts=(b16["collectives_per_step"],
+                                      b16["carried_bytes_per_step"],
+                                      b16["params"]),
+                              peak=[p[0] for p in serve_rec["tp"][
+                                  "peak_bytes"]])
+    out = {}
+    for lane in ("8b", "8d", "7b"):
+        t0 = time.perf_counter()
+        ranks = []
+        if lane == "7b":
+            for r in range(SERVE_TP):
+                m = meshlib.stand_in_mesh((1, SERVE_TP), ("data", "model"),
+                                          rank=r)
+                ranks.append(dryrun.dry_decode(
+                    get_arch("qwen2-7b"), m, SERVE_GEO["width"],
+                    SERVE_GEO["max_seq_len"]))
+        else:
+            cfg, tcfg, _, _ = mesh_lane(lane)
+            for r in range(MESH_RANKS):
+                m = meshlib.stand_in_mesh((2, 2), ("data", "model"), rank=r)
+                ranks.append(dryrun.dry_train(cfg, tcfg, m))
+        counts = [(int(sum(x["cost"].collective_counts.values())),
+                   int(x["cost"].collective_bytes), int(x["local_params"]))
+                  for x in ranks]
+        dry_peak = [x["memory"]["argument_size_in_bytes"]
+                    + x["memory"]["temp_size_in_bytes"] for x in ranks]
+        seen = measured.get(lane)
+        log(f"[tooling] dry run of lane {lane} on the stand-in mesh: "
+            f"collectives, bytes a step a rank and params a rank {counts} "
+            f"(the card, earlier runs: {DRYRUN_LANES[lane]}; this run: "
+            f"{seen['counts'] if seen else 'not run'}); argument + temp "
+            f"bytes a rank {dry_peak} beside the card's peak "
+            f"{seen['peak'] if seen else 'not measured in this run'} "
+            f"(plain attention and autograd on meta, not the fused path; "
+            f"not gated); {time.perf_counter() - t0:.1f} s")
+        for c in counts:
+            if c != DRYRUN_LANES[lane]:
+                raise AssertionError(f"[tooling] lane {lane}: the dry run "
+                                     f"counts {c}, the card {DRYRUN_LANES[lane]}")
+            if seen and c != tuple(seen["counts"]):
+                raise AssertionError(f"[tooling] lane {lane}: the dry run "
+                                     f"counts {c}, this run's ranks "
+                                     f"{seen['counts']}")
+        out[lane] = dict(counts=counts[0], dry_peak_bytes=dry_peak,
+                         card_peak_bytes=seen["peak"] if seen else None)
+    return out
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def tooling_start_combo():
+    """``python -m repro_torch.launch.dryrun --arch qwen2-7b --shape
+    train_4k --mesh pod`` in a process of its own (CPU only: meta
+    tensors, one thread), started right after the build so that it runs
+    beside the card's phases (its 42-58 s of tracing would otherwise
+    hold phase 9); stopped at exit if it still runs."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(_src_dir()),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    TOOLING_OUT.mkdir(parents=True, exist_ok=True)
+    with open(TOOLING_OUT / "combo.log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen2-7b", "--shape", "train_4k", "--mesh", "pod", "--out",
+             str(TOOLING_OUT)], env=env, stdout=out,
+            stderr=subprocess.STDOUT)
+    atexit.register(_stop, proc)
+    return proc
+
+
+def tooling_finish_combo(proc):
+    """The combo's record and its roofline line (``format_table``)."""
+    from repro_torch.roofline import analysis
+    proc.wait(timeout=900)
+    out = (TOOLING_OUT / "combo.log").read_text()
+    if proc.returncode:
+        raise AssertionError(f"[tooling] the dry run of qwen2-7b train_4k "
+                             f"failed:\n{out}")
+    rec = json.loads((TOOLING_OUT / "pod" / "qwen2-7b__train_4k.json")
+                     .read_text())
+    log("[tooling] " + next(line for line in out.splitlines()
+                            if line.startswith("OK ")))
+    log(f"[tooling] qwen2-7b train_4k pod: record {json.dumps({k: rec[k] for k in rec if k != 'roofline'})}")
+    log("[tooling] " + analysis.format_table(
+        [analysis.Roofline(**rec["roofline"])]).replace("\n", "\n[tooling] "))
+    return rec
+
+
+def tooling_example(torch, kernels, name, argv):
+    """One example's ``main(argv)`` on the card, its kernels counted from
+    0: (its result, its wall seconds, the launches)."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    res = mod.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    log(f"[tooling] example {name} {' '.join(argv)}: {wall:.1f} s; "
+        f"launches {counts}")
+    return res, wall, counts
+
+
+def tooling_examples(torch, kernels):
+    """The four examples on the card and their gates."""
+    from repro_torch.examples import train_centralvr_100m as train_ex
+
+    # no checkpoint (an empty path): its save writes the 4.9 GB state to
+    # disk, time the script cannot spare, and phase 6c already saves and
+    # resumes an LM on the card
+    ck = ""
+    out = {}
+    quick, wall, counts = tooling_example(torch, kernels, "quickstart", [])
+    out["quickstart"] = dict(wall_s=wall, launches=counts,
+                             centralvr_final=quick["centralvr_rels"][-1],
+                             sgd_final=quick["sgd_rels"][-1],
+                             eval_loss=quick["eval_loss"])
+    if not quick["centralvr_rels"][-1] < quick["sgd_rels"][-1]:
+        raise AssertionError("[tooling] quickstart: CentralVR's final rel "
+                             "is not below SGD's")
+    _, wall, counts = tooling_example(torch, kernels, "convex_distributed",
+                                      [])
+    out["convex_distributed"] = dict(wall_s=wall, launches=counts)
+    serve, wall, counts = tooling_example(torch, kernels, "serve_batched",
+                                          [])
+    out["serve_batched"] = dict(wall_s=wall, launches=counts, paths={
+        a: r["path"] for a, r in serve.items()})
+    try:
+        train_ex.main(["--steps", "8", "--checkpoint", ck])
+    except ValueError as e:
+        if "head size 40" not in str(e):
+            raise
+        log(f"[tooling] train_centralvr_100m's default profile refused on "
+            f"the card: {e}")
+    else:
+        raise AssertionError("[tooling] train_centralvr_100m ran head_dim "
+                             "40 on the card, which K3 does not take")
+    train, wall, counts = tooling_example(
+        torch, kernels, "train_centralvr_100m",
+        ["--full", "--steps", str(TRAIN_EXAMPLE_STEPS), "--checkpoint", ck])
+    out["train_centralvr_100m"] = dict(
+        wall_s=wall, launches=counts, first_loss=train["losses"][0],
+        last_loss=train["losses"][-1], eval_loss=train["eval_loss"],
+        params=train["params"])
+    if not train["losses"][-1] < train["losses"][0]:
+        raise AssertionError("[tooling] train_centralvr_100m: the loss did "
+                             "not fall")
+    need = {"quickstart": ("vr_epoch", "vr_update", "rmsnorm",
+                           "flash_attention"),
+            "convex_distributed": ("vr_epoch",),
+            "train_centralvr_100m": ("rmsnorm", "flash_attention")}
+    for name, kernels_needed in need.items():
+        for k in kernels_needed:
+            if not out[name]["launches"][k] > 0:
+                raise AssertionError(f"[tooling] example {name} launched "
+                                     f"{k} no time")
+    return out
+
+
+def phase_tooling(torch, kernels, proc, mesh_rec=None, serve_rec=None,
+                  examples=None):
+    """Phase 9: the dry-run lanes, the four examples (``examples``: their
+    record, when they already ran beside phase 8's ranks), and the
+    production combo that ``proc`` (``tooling_start_combo``) traces."""
+    t0 = time.perf_counter()
+    lanes = tooling_lanes(torch, mesh_rec, serve_rec)
+    if examples is None:
+        examples = tooling_examples(torch, kernels)
+    combo = tooling_finish_combo(proc)
+    launches = dict.fromkeys(kernels, 0)
+    for rec in examples.values():
+        for k, n in rec["launches"].items():
+            launches[k] += n
+    seconds = time.perf_counter() - t0
+    log(f"[path] phase 9 (tooling) in {seconds:.1f} s")
+    return dict(lanes=lanes, examples=examples, seconds=seconds,
+                combo={k: combo[k] for k in ("trace_s", "memory",
+                                             "roofline", "extrapolated")
+                       if k in combo},
+                launches=launches)
 
 
 def graph_ms(torch, fn, calls=200, replays=20):
@@ -4728,6 +5120,19 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--tooling" in sys.argv[1:]:
+        combo = tooling_start_combo()
+        # K2 and K3 against their plain versions at phase 9's shapes first
+        phase_compare_rmsnorm(torch, rms_kernel, rms_ref)
+        phase_compare_flash(torch, fa_kernel, fa_ref)
+        tooling = phase_tooling(torch, kernels, combo)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+        log(f"[card] {smi}")
+        log(json.dumps({"tooling": tooling}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--serve" in sys.argv[1:]:
         serve = phase_serve(torch, kernels, "--profile" in sys.argv[1:])
         log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
@@ -4747,6 +5152,10 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    def clock(what):
+        log(f"[clock] {what} done at {time.perf_counter() - t_start:.1f} s")
+
+    combo = tooling_start_combo()
     worst = phase_compare(torch, np, vr_kernel, vr_ref, proxops)
     vr_bf16_err = phase_compare_vr_bf16(torch, vr_kernel, vr_ref)
     epoch_err, epoch_rel = phase_compare_epoch(torch, vr_epoch, vr_ref,
@@ -4764,16 +5173,34 @@ def main():
     (moe_cfg, _, _), _ = archs_configs()
     moe_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                              (1, model.ParamLayout(moe_cfg).n), timed=True)
+    clock("phase 3 (each kernel against its plain version)")
     paths = phase_main_path(torch, kernels)
+    clock("phase 4 (convex main path)")
     paths += phase_family(torch, kernels)
+    clock("phase 5 (convex family)")
     sparse = phase_sparse(torch, kernels)
+    clock("phase 5b (sparse)")
     spmd = phase_spmd(torch, kernels)
+    clock("phase 4c (spmd)")
     lm = phase_lm(torch, kernels)
+    clock("phase 6 (LM)")
     lm += phase_archs(torch, kernels)
-    telemetry = phase_obs(torch, kernels)
-    fleet = phase_fleet(torch, kernels)
+    clock("phase 6d (archs)")
+    fleet_jobs = []
+    telemetry = phase_obs(torch, kernels,
+                          beside=lambda: fleet_jobs.extend(fleet_start()))
+    clock("phase 6b (obs)")
+    fleet = phase_fleet(torch, kernels, fleet_jobs)
+    clock("phase 6c (fleet)")
     serve = phase_serve(torch, kernels, "--profile" in sys.argv[1:])
-    mesh_rec = phase_mesh(torch, kernels)
+    clock("phase 7 (serve)")
+    examples = {}
+    mesh_rec = phase_mesh(torch, kernels, beside=lambda: examples.update(
+        tooling_examples(torch, kernels)))
+    clock("phase 8 (mesh) and phase 9's examples beside its ranks")
+    tooling = phase_tooling(torch, kernels, combo, mesh_rec, serve,
+                            examples)
+    clock("phase 9 (tooling)")
     (mamba_full, _), _ = mamba_configs()
     mamba_shape = vr_update_lm(torch, vr_kernel, vr_ref,
                                (2, model.ParamLayout(mamba_full).n),
@@ -4788,6 +5215,7 @@ def main():
     fa_local_time = time_flash(torch, fa_kernel, fa_ref, S=4096, H=10, KV=1,
                                hd=256, window=2048)
     ssd_time = time_ssd(torch, ssd_kernel, ssd_ref)
+    clock("the kernels' times")
     if "--profile" in sys.argv[1:]:
         phase_profile(torch)
         (qcfg, qtcfg), _ = lm_configs()
@@ -4813,6 +5241,8 @@ def main():
         total[name] += n
     for name, n in mesh_rec["launches"].items():
         total[name] += n
+    for name, n in tooling["launches"].items():
+        total[name] += n
     mamba = next(r for r in lm if r["label"].startswith("mamba2-130m L=24"))
     lm_paths = [{k: r[k] for k in LM_PATH_KEYS} for r in lm]
     head = epoch_times[0]
@@ -4820,6 +5250,7 @@ def main():
     log(f"[card] {smi}")
     log(json.dumps({"serve": serve}))
     log(json.dumps({"mesh": mesh_rec}))
+    log(json.dumps({"tooling": tooling}))
     log(json.dumps({"kernels": [{
         "name": "vr_update", "route": "cuda",
         "source": "src/repro_torch/kernels/vr_update/csrc/vr_update.cu",

@@ -13,7 +13,7 @@ This package imports torch and numpy only: never jax, never ``repro``.
 __version__ = "0.1.0"
 
 _SOLVER_EXPORTS = ("solve", "RunSpec", "RunResult", "AlgoCaps",
-                   "REGISTRY")
+                   "REGISTRY", "algorithms", "runner")
 
 __all__ = list(_SOLVER_EXPORTS) + ["__version__"]
 

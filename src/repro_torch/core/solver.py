@@ -19,6 +19,7 @@ of ``repro/core/solver.py``.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional, Tuple
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["RunSpec", "RunResult", "AlgoCaps", "Algorithm", "FAMILY",
-           "REGISTRY", "solve"]
+           "REGISTRY", "algorithms", "runner", "solve"]
 
 
 # ---------------------------------------------------------------------------
@@ -81,6 +82,8 @@ FAMILY: dict[str, AlgoCaps] = {
 
 class Algorithm(NamedTuple):
     name: str
+    module: str                # dotted module of the public run_* driver
+    func: str                  # driver attribute within ``module``
     caps: AlgoCaps
     call: Callable             # (spec, problem, eta, orders, group) ->
                                #   (state, x, rels, grad_evals | None)
@@ -90,10 +93,22 @@ class Algorithm(NamedTuple):
 REGISTRY: dict[str, Algorithm] = {}
 
 
-def register(name: str, call: Callable, doc: str) -> None:
+def register(name: str, module: str, func: str, call: Callable,
+             doc: str) -> None:
     if name in REGISTRY:
         raise ValueError(f"algorithm {name!r} already registered")
-    REGISTRY[name] = Algorithm(name, FAMILY[name], call, doc)
+    REGISTRY[name] = Algorithm(name, module, func, FAMILY[name], call, doc)
+
+
+def algorithms() -> Tuple[str, ...]:
+    """Registered algorithm names, in registration (paper) order."""
+    return tuple(REGISTRY)
+
+
+def runner(name: str) -> Callable:
+    """Resolve a registry entry to its public ``run_*`` driver."""
+    entry = REGISTRY[name]
+    return getattr(importlib.import_module(entry.module), entry.func)
 
 
 # ---------------------------------------------------------------------------
@@ -759,16 +774,26 @@ def _call_ps_svrg(spec, sp, eta, orders, group):
     return x, x, rels, None
 
 
-register("centralvr", _call_centralvr,
+_CORE = "repro_torch.core."
+register("centralvr", _CORE + "centralvr", "run", _call_centralvr,
          "CentralVR, single worker (Algorithm 1)")
-register("centralvr_sync", _call_sync, "CentralVR-Sync (Algorithm 2)")
-register("centralvr_async", _call_async,
+register("centralvr_sync", _CORE + "distributed", "run_sync", _call_sync,
+         "CentralVR-Sync (Algorithm 2)")
+register("centralvr_async", _CORE + "distributed", "run_async", _call_async,
          "CentralVR-Async (Algorithm 3), deterministic event schedule")
-register("dsvrg", _call_dsvrg, "Distributed SVRG (Algorithm 4)")
-register("dsaga", _call_dsaga, "Distributed SAGA (Algorithm 5)")
-register("sgd", _call_sgd, "plain SGD, permutation sampling (Fig. 1 baseline)")
-register("svrg", _call_svrg, "SVRG [17]; tau = inner-loop length (default n)")
-register("saga", _call_saga, "SAGA [12] (Fig. 1 baseline)")
-register("dist_sgd", _call_dist_sgd, "distributed SGD with periodic averaging")
-register("easgd", _call_easgd, "elastic averaging SGD [36]")
-register("ps_svrg", _call_ps_svrg, "parameter-server SVRG [29]")
+register("dsvrg", _CORE + "distributed", "run_dsvrg", _call_dsvrg,
+         "Distributed SVRG (Algorithm 4)")
+register("dsaga", _CORE + "distributed", "run_dsaga", _call_dsaga,
+         "Distributed SAGA (Algorithm 5)")
+register("sgd", _CORE + "baselines", "run_sgd", _call_sgd,
+         "plain SGD, permutation sampling (Fig. 1 baseline)")
+register("svrg", _CORE + "baselines", "run_svrg", _call_svrg,
+         "SVRG [17]; tau = inner-loop length (default n)")
+register("saga", _CORE + "baselines", "run_saga", _call_saga,
+         "SAGA [12] (Fig. 1 baseline)")
+register("dist_sgd", _CORE + "baselines", "run_dist_sgd", _call_dist_sgd,
+         "distributed SGD with periodic averaging")
+register("easgd", _CORE + "baselines", "run_easgd", _call_easgd,
+         "elastic averaging SGD [36]")
+register("ps_svrg", _CORE + "baselines", "run_ps_svrg", _call_ps_svrg,
+         "parameter-server SVRG [29]")

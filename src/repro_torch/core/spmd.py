@@ -38,7 +38,12 @@ gloo collective. The rank waits for the copy on an event that blocks
 instead of spinning: ranks that share a card also share the host's
 cores with gloo's threads, and a spinning wait starves them (PS-SVRG's
 all-reduce a step took 23 ms so on an H100 with 8 ranks). NCCL takes the
-rank's CUDA tensors directly.
+rank's CUDA tensors directly. A group of ``transport="record"`` (a stand-in
+mesh's, ``launch.mesh.stand_in_mesh``) communicates nothing: each
+collective takes a tensor on ``meta``, returns one of the shape and dtype
+the real collective returns, counts it as the real one does, and appends
+``(kind, shape, dtype, bytes)`` to ``group.log`` — the dry run's view of
+a mesh (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -107,10 +112,29 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
+def _recorded(g: WorkerGroup, kind: str, t: torch.Tensor,
+              out: torch.Tensor) -> torch.Tensor:
+    """A stand-in group's collective: ``out`` (on ``meta``, the real
+    collective's result shape) counted and logged. Raises on a tensor
+    that is not on ``meta``: a record group never stands in for a real
+    collective on data."""
+    if t.device.type != "meta":
+        raise RuntimeError(
+            f"a stand-in group (transport='record') got a {kind} on "
+            f"{t.device}; it only records collectives on meta tensors")
+    nbytes = out.numel() * out.element_size()
+    g.carried_bytes += nbytes
+    g.collectives += 1
+    g.log.append((kind, tuple(out.shape), out.dtype, nbytes))
+    return out
+
+
 def psum_(t: torch.Tensor, g: WorkerGroup) -> torch.Tensor:
     """``t`` summed over the ranks, in place (an ``all_reduce``)."""
     import torch.distributed as dist
 
+    if g.transport == "record":
+        return _recorded(g, "all-reduce", t, t)
     if _staged(g, t):
         host = _to_host(t)
         dist.all_reduce(host, group=g.group)
@@ -133,6 +157,9 @@ def all_gather(t: torch.Tensor, g: WorkerGroup) -> torch.Tensor:
     """(p, *t.shape): every rank's ``t`` in rank order."""
     import torch.distributed as dist
 
+    if g.transport == "record":
+        return _recorded(g, "all-gather", t, t.new_empty(
+            (g.world,) + tuple(t.shape)))
     staged = _staged(g, t)
     src = _to_host(t) if staged else t.contiguous()
     out = torch.empty((g.world,) + tuple(src.shape), dtype=src.dtype,
@@ -151,6 +178,8 @@ def pmax_(t: torch.Tensor, g: WorkerGroup) -> torch.Tensor:
 
     if g.world == 1:
         return t
+    if g.transport == "record":
+        return _recorded(g, "all-reduce", t, t)
     if _staged(g, t):
         host = _to_host(t)
         dist.all_reduce(host, op=dist.ReduceOp.MAX, group=g.group)
@@ -181,6 +210,10 @@ def reduce_scatter_dim(t: torch.Tensor, g: WorkerGroup,
 
     if g.world == 1:
         return t
+    if g.transport == "record":
+        shard = t.chunk(g.world, dim=dim)[0]
+        return _recorded(g, "reduce-scatter", t,
+                         shard.new_empty(shard.shape))
     staged = _staged(g, t)
     src = _to_host(t) if staged else t
     parts = [c.contiguous() for c in src.chunk(g.world, dim=dim)]

@@ -11,6 +11,10 @@ reference puts one device at each position of a ``jax.sharding.Mesh``.
     model) meshes of the sharded train step (:class:`ProcessMesh`): the
     rank's coordinates, and one :class:`WorkerGroup` per axis (its row
     and its column) and over (pod, data);
+  * :func:`stand_in_mesh` — one rank's view of a mesh of any shape on
+    ``torch.device("meta")``, with groups that record their collectives
+    instead of communicating (``core/spmd.py``): the dry run's mesh,
+    which needs no world;
   * :func:`spawn_workers` — starts p ranks on this host, runs a function
     in each, returns every rank's result and re-raises a rank's failure;
   * :func:`pick_transport` — the rule that chooses the collectives'
@@ -28,7 +32,7 @@ import os
 import tempfile
 import time
 import traceback
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -45,7 +49,9 @@ class WorkerGroup:
     the process group, the rank's device and the collectives' transport.
     ``carried_bytes`` and ``collectives`` count what this rank's
     collectives carried (result-shape bytes, ``obs/comms.py``'s
-    convention); ``core/spmd.py`` adds to them."""
+    convention); ``core/spmd.py`` adds to them. A stand-in group
+    (``transport="record"``, :func:`stand_in_mesh`) also logs each
+    collective in ``log`` as ``(kind, shape, dtype, bytes)``."""
 
     rank: int
     world: int
@@ -54,6 +60,7 @@ class WorkerGroup:
     transport: str
     carried_bytes: int = 0
     collectives: int = 0
+    log: list = field(default_factory=list)
 
 
 def local_rank(rank: int) -> int:
@@ -296,8 +303,7 @@ def _build_mesh(shape, axis_names, *, transport: str = "auto",
         return WorkerGroup(rank=0, world=1, group=None, device=dev,
                            transport=have)
 
-    keys = [(a,) for a in axis_names] + [
-        k for k in _GROUP_AXES if all(a in axis_names for a in k)]
+    keys = _group_keys(axis_names)
     groups = {(): solo()}
     # every axis at once: the whole world, in rank order
     groups[axis_names] = (solo() if world == 1 else WorkerGroup(
@@ -334,6 +340,53 @@ def _build_mesh(shape, axis_names, *, transport: str = "auto",
     return ProcessMesh(axis_names=axis_names, shape=shape, rank=rank,
                        world=world, coords=coords, device=dev,
                        transport=have, groups=groups)
+
+
+def _group_keys(axis_names) -> list:
+    """The keys of the groups a mesh over ``axis_names`` holds besides
+    ``()`` and the whole world: each axis alone, and each combination of
+    ``_GROUP_AXES`` whose axes it has."""
+    return [(a,) for a in axis_names] + [
+        k for k in _GROUP_AXES if all(a in axis_names for a in k)]
+
+
+def stand_in_mesh(shape, axis_names, rank: int = 0) -> ProcessMesh:
+    """Rank ``rank``'s :class:`ProcessMesh` of ``shape`` on
+    ``torch.device("meta")``, without a world: every group that
+    :func:`_build_mesh` makes, of the same size and with the rank's place
+    in it, but of ``transport="record"``, so that ``core/spmd.py``'s
+    collectives count and log what they would carry and communicate
+    nothing. The production shapes (16, 16) and (2, 16, 16) come without
+    256 or 512 ranks; the tensors of a program run on it are meta
+    tensors (``launch/dryrun.py``)."""
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axes {axis_names} differ "
+                         "in length")
+    world = 1
+    for s in shape:
+        world *= s
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not on a mesh of {world} ranks")
+    dev = torch.device("meta")
+    coords = unravel(rank, shape)
+
+    def group(dims):
+        size, i = 1, 0
+        for d in dims:
+            size *= shape[d]
+            i = i * shape[d] + coords[d]
+        return WorkerGroup(rank=i, world=size, group=None, device=dev,
+                           transport="record")
+
+    groups = {(): group(())}
+    groups[axis_names] = group(range(len(shape)))
+    for key in _group_keys(axis_names):
+        if key not in groups:
+            groups[key] = group([axis_names.index(a) for a in key])
+    return ProcessMesh(axis_names=axis_names, shape=shape, rank=rank,
+                       world=world, coords=coords, device=dev,
+                       transport="record", groups=groups)
 
 
 def make_production_mesh(*, multi_pod: bool = False, transport: str = "auto",

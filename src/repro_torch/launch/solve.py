@@ -170,7 +170,8 @@ def print_list() -> None:
     """The registry, one algorithm a line, with its capability flags."""
     from repro_torch.core import solver
 
-    for name, e in solver.REGISTRY.items():
+    for name in solver.algorithms():
+        e = solver.REGISTRY[name]
         c = e.caps
         flags = [k for k, v in
                  (("distributed", c.distributed), ("spmd", c.spmd_ok),
@@ -280,7 +281,7 @@ def main(argv=None) -> int:
     cfg = ConvexConfig(problem=args.problem, n=n, d=d, seed=args.seed,
                        outlier_frac=args.outlier_frac,
                        huber_delta=args.huber_delta)
-    names = list(solver.REGISTRY) if args.sweep else [args.algo]
+    names = solver.algorithms() if args.sweep else [args.algo]
     # every spec is validated here, before a rank starts
     specs = [build_spec(args, name, workers, rounds) for name in names]
 

@@ -114,7 +114,10 @@ def apply_moe(p, cfg: ModelConfig, x, capacity_factor: float = 0.0):
     e_sorted = flat_e[order]
     t_sorted = flat_t[order]
     pos_in_e = torch.arange(T * K, device=dev)
-    counts = torch.bincount(e_sorted, minlength=E)
+    # the expert loads by scatter_add_ (bincount has no meta kernel, and
+    # the dry run routes on meta tensors)
+    counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, e_sorted, torch.ones_like(e_sorted))
     e_start = torch.cumsum(counts, 0) - counts      # start offset per expert
     slot = pos_in_e - e_start[e_sorted]
     keep = slot < cap

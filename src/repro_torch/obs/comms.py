@@ -48,6 +48,16 @@ _MODELS = {
 }
 
 
+def coverage_gaps(algos) -> tuple:
+    """(missing, extra) vs the comms models — ``missing`` are registry
+    algorithms with no comms model (each needs a ``_MODELS`` row before it
+    can appear in provenance), ``extra`` are stale models for retired
+    algorithms."""
+    algos = set(algos)
+    return (tuple(sorted(algos - set(_MODELS))),
+            tuple(sorted(set(_MODELS) - algos)))
+
+
 def comms_model(algo: str, *, p: int, d: int, rounds: int,
                 bytes_per_el: int = BYTES_PER_EL,
                 events_per_round: Optional[int] = None) -> dict:

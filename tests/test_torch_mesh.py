@@ -276,6 +276,34 @@ def test_collectives_are_counted(runs):
     assert r["collectives"] > 0 and r["carried"] > 0
 
 
+@pytest.mark.parametrize("name", ["qwen2 d2m2 fsdp+tp", "qwen3-moe d2m2",
+                                  "qwen2-moe d2m2"])
+def test_stand_in_mesh_counts_the_ranks_collectives(runs, name):
+    """The dry run's stand-in mesh (``launch.mesh.stand_in_mesh``, groups
+    that record instead of communicating) runs the same steps on meta
+    tensors and counts, rank by rank, the collectives and bytes that the
+    gloo ranks carried in their steps."""
+    from repro_torch.config import MeshConfig
+    case = _by_name(name)
+    cfg = mc.cfg_of(case["arch"])
+    W = mc.workers_of(case)
+    tcfg = mc.tcfg_of(case["vr"], W, case["dp_replicated"])
+    mcfg = MeshConfig(case["shape"], case["names"])
+    for r, rank in enumerate(runs["ranks"][name]):
+        m = meshlib.stand_in_mesh(mcfg.shape, mcfg.axis_names, rank=r)
+        fn, meta = tstep.make_train_step(cfg, tcfg, m, case["workers"])
+        state = tstep.init_train_state(cfg, tcfg, W, mesh=m,
+                                       vr_workers=case["workers"],
+                                       device="meta")
+        toks = torch.empty((meta["accum"], meta["microbatch"],
+                            tcfg.seq_len), dtype=torch.int64, device="meta")
+        for _ in range(case["steps"]):
+            state, _ = fn(state, toks)
+        assert (m.collectives, m.carried_bytes) == (rank["collectives"],
+                                                    rank["carried"])
+        assert m.coords == tuple(rank["coords"])
+
+
 def test_module_checks_against_full_tensor_autograd(runs):
     for rank in runs["four"]:
         for name, err in rank["module"]:

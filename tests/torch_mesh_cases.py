@@ -53,7 +53,9 @@ def run_case(case, p0, toks):
     spread after each step (the largest distance of any rank's params
     from the workers' mean, maxed over the world), the gradient of the
     first step where vr is none, the full params gathered from the
-    shards, and the layout's local shapes and specs."""
+    shards, the layout's local shapes and specs, and the collectives and
+    their bytes of the steps alone (the spread's and the gathers' left
+    out)."""
     cfg = cfg_of(case["arch"])
     W = workers_of(case)
     tcfg = tcfg_of(case["vr"], W, case["dp_replicated"])
@@ -68,9 +70,13 @@ def run_case(case, p0, toks):
     tokens = torch.from_numpy(toks)
     world = m.group(m.axis_names)
     losses, spreads, grad = [], [], None
+    collectives = carried = 0
     for s in range(case["steps"]):
         block = tokens[:, s % 2]
+        c0, b0 = m.collectives, m.carried_bytes
         state, out = fn(state, block if W > 1 else block[0])
+        collectives += m.collectives - c0
+        carried += m.carried_bytes - b0
         losses.append(float(out["loss"]))
         if s == 0 and case["vr"] == "none":
             grad = pl.gather_full(state.grad[None] if state.grad.dim() == 1
@@ -82,7 +88,7 @@ def run_case(case, p0, toks):
                 local=state.params.clone(), full=pl.gather_full(state.params),
                 shapes=[tuple(s) for s in pl.layout.shapes],
                 specs=pl.layout.specs, coords=m.coords,
-                collectives=m.collectives, carried=m.carried_bytes)
+                collectives=collectives, carried=carried)
 
 
 def run_host_loop(case, p0, toks, ev):
