@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.vr_update import ref as vr_ref
+from repro_torch.obs import recorder as obs_recorder
 
 # the convex path runs in float64 (the reference's tests enable x64)
 DTYPE = torch.float64
@@ -200,7 +201,7 @@ def constants(prob: Problem):
 def auto_eta(prob: Problem, c: float = 0.3) -> float:
     """Practical step size c/L."""
     _, L = constants(prob)
-    return float(c / L)
+    return obs_recorder.host_read("auto_eta", float, c / L)
 
 
 def solve_exact(prob: Problem, iters: int = 100) -> torch.Tensor:

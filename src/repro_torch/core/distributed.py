@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import convex, runtime
 from repro_torch.core.convex import Problem
+from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs import stage as obs_stage
 from repro_torch.obs import stream as obs_stream
 from repro_torch.prox import operators as proxops
@@ -156,7 +157,8 @@ def _local_sgd_epoch(A, b, lam, kind, x, eta, orders, prox=None,
     if fused is not None:
         from repro_torch.core import fused as fusedmod
         n = A.shape[1]
-        if orders.shape[-1] != n or not bool(
+        if orders.shape[-1] != n or not obs_recorder.host_read(
+                "init_perm", bool,
                 (orders.sort(-1).values
                  == torch.arange(n, device=orders.device)).all()):
             raise ValueError("the fused init epoch needs init orders that "
@@ -211,11 +213,13 @@ def sync_round(sp: ShardedProblem, st: SyncState, eta: float,
     lines 4-18. Composite objectives apply the prox per local step and
     once more after the central average (the mean of prox outputs is not
     itself one)."""
-    xs, tables, accs = _local_centralvr_epoch(
-        sp.A, sp.b, sp.lam, sp.kind, st.x.expand(sp.p, sp.d), st.tables,
-        st.gbar, eta, perms, fused=fused, prox=prox)
-    return SyncState(x=proxops.apply_prox(prox, xs.mean(0), eta),
-                     tables=tables, gbar=accs.mean(0))
+    with obs_recorder.span("solve/epoch", device=sp.A.device):
+        xs, tables, accs = _local_centralvr_epoch(
+            sp.A, sp.b, sp.lam, sp.kind, st.x.expand(sp.p, sp.d), st.tables,
+            st.gbar, eta, perms, fused=fused, prox=prox)
+    with obs_recorder.span("solve/average", device=sp.A.device):
+        return SyncState(x=proxops.apply_prox(prox, xs.mean(0), eta),
+                         tables=tables, gbar=accs.mean(0))
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -252,7 +256,9 @@ def _as_index(t, shape, name: str, device, high: int) -> torch.Tensor:
         raise ValueError(f"orders: {name} have shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if t.numel():
-        lo, hi = (int(v) for v in torch.aminmax(t))
+        lo, hi = torch.aminmax(t)
+        lo = obs_recorder.host_read("orders_min", int, lo)
+        hi = obs_recorder.host_read("orders_max", int, hi)
         if lo < 0 or hi >= high:
             raise ValueError(f"orders: {name} hold indices in [{lo}, {hi}],"
                              f" out of range [0, {high})")
@@ -295,23 +301,28 @@ def run_sync(sp: ShardedProblem, *, eta: float, rounds: int, orders=None,
     if orders is None:
         orders = draw_sync_orders(_generator(device, seed), sp.p, sp.ns,
                                   rounds)
-    init, per = _as_orders(orders, ((sp.p, sp.ns), (rounds, sp.p, sp.ns)),
-                           device, sp.ns)
+    with obs_recorder.span("solve/orders"):
+        init, per = _as_orders(orders, ((sp.p, sp.ns),
+                                        (rounds, sp.p, sp.ns)), device, sp.ns)
     px = proxops.parse(spec.prox) if spec.prox is not None else None
     fused_t = fusedmod.make_params(spec.fused, eta, sp.lam, device, prox=px)
 
     def run_rounds():
-        st = sync_init(sp, eta, init, prox=px, fused=fused_t)
+        with obs_recorder.span("solve/init"):
+            st = sync_init(sp, eta, init, prox=px, fused=fused_t)
         merged = sp.merged()
-        g0 = convex.grad_norm0(merged, prox=px, eta=eta)
+        with obs_recorder.span("solve/rel0", device=device):
+            g0 = convex.grad_norm0(merged, prox=px, eta=eta)
         stream = obs_stream.open_stream("rel", rounds, device)
         rels = []
         for r in range(rounds):
-            st = sync_round(sp, st, eta, per[r], fused=fused_t, prox=px)
-            rels.append(convex.rel_grad_norm(merged, st.x, g0, prox=px,
-                                             eta=eta))
-            if stream is not None:
-                stream.push(r, rels[-1])
+            with obs_recorder.span("solve/round"):
+                st = sync_round(sp, st, eta, per[r], fused=fused_t, prox=px)
+                with obs_recorder.span("solve/rel", device=device):
+                    rels.append(convex.rel_grad_norm(merged, st.x, g0,
+                                                     prox=px, eta=eta))
+                if stream is not None:
+                    stream.push(r, rels[-1])
         if stream is not None:
             stream.close()
         return st, torch.stack(rels)

@@ -572,6 +572,15 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
     installed by ``launch.distributed`` (``core/procmesh.py``; its
     launcher passes each process ``launch.mesh.rank_device``).
     """
+    from repro_torch.obs import recorder as obs_recorder
+    with obs_recorder.span("solve", algo=spec.algo):
+        return _solve(spec, problem, device, orders, group, membership)
+
+
+def _solve(spec: RunSpec, problem, device, orders, group,
+           membership) -> RunResult:
+    """:func:`solve`'s body, inside its root span: ``solve/build``, the
+    driver's spans, ``solve/out`` (the copies to the host)."""
     from repro_torch.core import convex, distributed, runtime
     from repro_torch.kernels import launch_counts, resolve_device
     from repro_torch.obs import comms as obs_comms
@@ -600,7 +609,7 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
                              "backend='spmd'; this spec runs backend="
                              f"{spec.backend!r}")
         device = resolve_device(device, "repro_torch.solve")
-    with obs_recorder.span("solve/build", algo=spec.algo,
+    with obs_recorder.span("solve/build", device=device, algo=spec.algo,
                            backend=spec.backend):
         problem = _coerce_problem(spec, problem, device, place=not spmd_run)
         eta = spec.eta
@@ -630,8 +639,10 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
     else:
         state, x, rels, grad_evals = entry.call(spec, problem, eta, orders,
                                                 group)
-    rels = rels.cpu().numpy()
-    wall = time.perf_counter() - t0
+    with obs_recorder.span("solve/out"):
+        rels = obs_recorder.host_read("solve_rels", rels.cpu).numpy()
+        wall = time.perf_counter() - t0
+        x_host = obs_recorder.host_read("solve_x", x.cpu).numpy()
     counts = launch_counts()
     launches = {k: counts[k] - launches0[k]
                 for k in ("vr_update", "vr_epoch", "lazy_epoch")}
@@ -655,7 +666,7 @@ def solve(spec: RunSpec, problem, *, device=None, orders=None,
             runtime.event_schedule(spec.p, spec.rounds, spec.speeds), spec.p)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type)
-    res = RunResult(spec=resolved, rels=rels, x=x.cpu().numpy(),
+    res = RunResult(spec=resolved, rels=rels, x=x_host,
                     state=state, wall_s=wall, launches=launches,
                     device=name, grad_evals=grad_evals, comms=comms,
                     staleness=staleness, transitions=transitions)

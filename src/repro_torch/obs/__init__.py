@@ -3,8 +3,11 @@
 One JSONL record per run (spans, streamed per-round metrics, counters,
 comms/staleness accounting), OFF by default and without cost when off:
 no sync, copy, event or launch is added to a run unless a recorder is
-active. The rows follow the reference's schema at the same version, so
-either package's validator accepts the other's records.
+active. While a ``torch.profiler`` records, the spans also go to an
+in-process log (``spans()``) that a device trace can be aligned with
+(``obs/timeline.py``), with no sync. The rows follow the reference's
+schema at the same version, so either package's validator accepts the
+other's records.
 
 Quickstart::
 
@@ -20,8 +23,13 @@ Quickstart::
 Pieces:
 
   * :mod:`repro_torch.obs.recorder` — the JSONL sink (``Recorder``),
-    module recorder slot (``enable``/``disable``/``active``/``recording``)
-    and the no-op-safe ``span`` helper.
+    module recorder slot (``enable``/``disable``/``active``/``recording``),
+    the no-op-safe ``span`` helper, on under a recorder or a
+    ``torch.profiler``, its in-process log (``spans``), and the counted
+    host reads of device values (``host_read``, ``counters``).
+  * :mod:`repro_torch.obs.timeline` — the span log on a device trace's
+    time base: the alignment from its host reads, and which span the host
+    was in at a moment of the trace.
   * :mod:`repro_torch.obs.stage`    — ``staged_call``: one ``execute``
     span around a driver's run, with its CUDA-event device time and
     kernel launches.
@@ -39,16 +47,18 @@ Pieces:
 from __future__ import annotations
 
 from repro_torch.obs.comms import comms_model
-from repro_torch.obs.recorder import (Recorder, active, disable, enable,
-                                      recording, span)
+from repro_torch.obs.recorder import (Recorder, active, counters, disable,
+                                      enable, host_read, recording, span,
+                                      spans)
 from repro_torch.obs.schema import SCHEMA_VERSION, SchemaError, validate_file
 from repro_torch.obs.stage import staged_call
 from repro_torch.obs.staleness import staleness_stats
-from repro_torch.obs.stream import scan_metric, stream_active
+from repro_torch.obs.stream import stream_active
 
 __all__ = [
     "Recorder", "active", "enable", "disable", "recording", "span",
-    "staged_call", "scan_metric", "stream_active",
+    "spans", "host_read", "counters",
+    "staged_call", "stream_active",
     "comms_model", "staleness_stats",
     "SCHEMA_VERSION", "SchemaError", "validate_file",
 ]

@@ -22,7 +22,10 @@ event with what this rank's collectives carried in the call
 ``comms_hlo`` bytes of its compiled module. There is no compile step to
 fall back from, so the port has no ``stage_fallback`` event.
 
-With telemetry OFF the call goes straight through: no event, no sync.
+While a profiler records with no recorder installed, the call is one
+more span of the log (``obs/recorder.py``), with its device time and no
+wait. With telemetry OFF the call goes straight through: no event, no
+sync.
 """
 from __future__ import annotations
 
@@ -35,38 +38,33 @@ def staged_call(fn, *args, _label: str, _device=None, _group=None, **kw):
     """Call ``fn(*args, **kw)``; with a recorder active, inside one
     ``<label>/execute`` span (``_device``: where the call runs; ``_group``:
     the spmd ``WorkerGroup`` whose collectives it counts)."""
+    if not _recorder.tracing():
+        return fn(*args, **kw)
+    name = f"{_label}/execute"
     rec = _recorder.active()
     if rec is None:
-        return fn(*args, **kw)
+        with _recorder.span(name, device=_device):
+            return fn(*args, **kw)
 
     from repro_torch.kernels import launch_counts
 
-    name = f"{_label}/execute"
     cuda = _device is not None and torch.device(_device).type == "cuda"
     counts0 = launch_counts()
     carried0 = ((_group.carried_bytes, _group.collectives)
                 if _group is not None else None)
-    fields = {}
-    t0 = rec.clock()
+    sp = _recorder.open_span(name, device=_device if cuda else None)
     try:
-        with _recorder.profiled(name):
-            if cuda:
-                with torch.cuda.device(_device):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    out = fn(*args, **kw)
-                    end.record()
-                    torch.cuda.synchronize()
-                fields["device_ms"] = start.elapsed_time(end)
-            else:
+        if cuda:
+            with torch.cuda.device(_device):
                 out = fn(*args, **kw)
+        else:
+            out = fn(*args, **kw)
     except BaseException:
-        rec.end_span(name, t0, failed=True)
+        _recorder.close_span(sp, failed=True)
         raise
     counts = launch_counts()
-    fields["launches"] = {k: counts[k] - counts0[k] for k in counts}
-    rec.end_span(name, t0, **fields)
+    _recorder.close_span(sp, wait=cuda,
+                         launches={k: counts[k] - counts0[k] for k in counts})
     if carried0 is not None:
         rec.event("comms_measured", label=_label,
                   carried_bytes=_group.carried_bytes - carried0[0],

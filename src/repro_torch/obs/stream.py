@@ -37,15 +37,6 @@ def stream_active() -> bool:
     return _recorder.active() is not None
 
 
-def scan_metric(name: str, step, value) -> None:
-    """Emit one (step, value) row to the active recorder; a no-op when
-    telemetry is off. It reads ``value`` at once (a sync for a CUDA
-    tensor), so the drivers' round loops use :class:`MetricStream`."""
-    rec = _recorder.active()
-    if rec is not None:
-        rec.metric(name, int(step), float(value))
-
-
 class MetricStream:
     """One run's stream of a per-round scalar ``name`` (``rounds`` slots)
     into the recorder ``rec``."""

@@ -49,6 +49,20 @@ STREAMED = ("centralvr", "centralvr_sync", "centralvr_async", "dsvrg",
             "dsaga")
 
 
+# the spans a recorded solve's driver opens besides its execute span (the
+# rows in the order the spans end); every driver's solve also has the
+# root span ``solve``, ``solve/build`` and ``solve/out``
+DRIVER_SPANS = {"centralvr_sync": [
+    "solve/orders", "solve/init", "solve/rel0",
+    *["solve/epoch", "solve/average", "solve/rel", "solve/round"] * ROUNDS]}
+
+
+def _phases(rows):
+    """The names of a record's span rows, less the host reads'."""
+    return [r["name"] for r in rows if r["kind"] == "span"
+            and not r["name"].startswith("sync/")]
+
+
 def _sharded(p=P, n=24, d=6):
     cfg = JConvexConfig(problem="logistic", n=n, d=d, workers=p)
     return jdistributed.make_distributed(jax.random.PRNGKey(0), cfg)
@@ -143,7 +157,10 @@ def test_schema_tables_are_the_reference_s():
     # the port's RunSpec has the reference's fields, in its order
     assert (tuple(f.name for f in dataclasses.fields(repro_torch.RunSpec))
             == jschema.PROVENANCE_SPEC_KEYS)
-    assert set(obs.__all__) == set(repro.obs.__all__)
+    # the reference's names, less scan_metric (the port's drivers stream
+    # through MetricStream), and the span log's
+    assert set(obs.__all__) == (set(repro.obs.__all__) - {"scan_metric"}
+                                | {"spans", "host_read", "counters"})
 
 
 def test_telemetry_off_is_the_default_and_recording_scopes():
@@ -192,8 +209,9 @@ def test_reference_record_validates_under_the_port(tmp_path):
 def test_recorded_async_solve_is_bit_identical_with_full_record(tmp_path,
                                                                 fused):
     """Algorithm 3 with speeds, fused and not, unrecorded then recorded:
-    x, rels and launches exactly equal; the record carries the solve/build
-    and execute spans, one streamed metric row per round equal to rels,
+    x, rels and launches exactly equal; the record carries the root
+    solve span with solve/build, execute and solve/out inside it, one
+    streamed metric row per round equal to rels,
     and the launches and provenance events; both validators accept it."""
     jsp, sp = _problem("centralvr_async")
     spec = repro_torch.RunSpec(**_spec("centralvr_async", fused=fused))
@@ -208,8 +226,8 @@ def test_recorded_async_solve_is_bit_identical_with_full_record(tmp_path,
 
     assert schema.validate_file(path) == jschema.validate_file(path)
     rows = schema.load_rows(path)
-    names = [r["name"] for r in rows if r["kind"] == "span"]
-    assert names == ["solve/build", "solve/centralvr_async/execute"]
+    assert _phases(rows) == ["solve/build", "solve/centralvr_async/execute",
+                             "solve/out", "solve"]
     ex = rows[[r["name"] for r in rows].index(
         "solve/centralvr_async/execute")]
     assert ex["launches"]["vr_epoch"] == on.launches["vr_epoch"]
@@ -242,8 +260,8 @@ def test_every_algorithm_records_one_execute_span(tmp_path, algo):
     np.testing.assert_array_equal(off.rels, on.rels)
     np.testing.assert_array_equal(off.x, on.x)
     rows = schema.load_rows(path)
-    spans = [r["name"] for r in rows if r["kind"] == "span"]
-    assert spans == ["solve/build", f"solve/{algo}/execute"]
+    assert _phases(rows) == ["solve/build", *DRIVER_SPANS.get(algo, []),
+                             f"solve/{algo}/execute", "solve/out", "solve"]
     metric = [r["value"] for r in rows if r["kind"] == "metric"]
     assert metric == ([float(v) for v in on.rels] if algo in STREAMED
                       else [])
@@ -272,11 +290,9 @@ def test_stream_emits_in_round_order_and_disable_drops_late_rows(tmp_path):
         for i in range(4):
             s.push(i, torch.tensor(0.5 ** i, dtype=torch.float64))
         s.close()
-        obs.scan_metric("other", 0, torch.tensor(1.0))
-    obs.scan_metric("after", 0, 1.0)      # no recorder: a no-op
     rows = [r for r in schema.load_rows(path) if r["kind"] == "metric"]
     assert [(r["name"], r["step"], r["value"]) for r in rows] == [
-        ("rel", 0, 1.0), ("rel", 2, 0.25), ("other", 0, 1.0)]
+        ("rel", 0, 1.0), ("rel", 2, 0.25)]
 
 
 def test_staged_call_records_one_execute_span(tmp_path):
@@ -305,6 +321,177 @@ def test_staged_call_records_one_execute_span(tmp_path):
 # ---------------------------------------------------------------------------
 # The LM loop
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# The span log and the counted host reads
+# ---------------------------------------------------------------------------
+
+def _cpu_profiler():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _sync_solve(fused=True, **kw):
+    """A centralvr_sync solve on the CPU at the test size, with the
+    reference's draws."""
+    _, sp = _problem("centralvr_sync")
+    spec = repro_torch.RunSpec(**{**_spec("centralvr_sync", fused=fused),
+                                  **kw})
+    orders = convert.sync_orders(jax.random, KEY, P, sp.ns, ROUNDS)
+    return repro_torch.solve(spec, sp, device="cpu", orders=orders)
+
+
+def test_spans_and_host_reads_are_off_without_recorder_or_profiler(
+        monkeypatch):
+    """Neither a recorder nor a profiler: a span is the one shared null
+    context, a host read is its call, and neither makes an event or an
+    entry of the log."""
+    from repro_torch.obs import recorder
+
+    def refuse(*a, **kw):
+        raise AssertionError("tracing off made a CUDA event")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    assert not recorder.tracing()
+    before = obs.spans()
+    assert obs.span("solve/epoch", device="cuda") is recorder._NULL
+    with obs.span("solve/rel", device="cuda") as r:
+        assert r is None
+    assert obs.host_read("test_off", float, torch.tensor(2.5)) == 2.5
+    _sync_solve()
+    assert obs.spans() == before
+
+
+def test_host_reads_are_counted_by_site():
+    """Each read counts once under its site, traced or not; a solve of
+    Algorithm 2 reads eight device values: auto_eta, the two ends of each
+    of its two order arrays, the fused init epoch's permutation check,
+    rels and x."""
+    before = obs.counters()
+    obs.host_read("test_site", int, torch.tensor(3))
+    obs.host_read("test_site", int, torch.tensor(4))
+    with _cpu_profiler():
+        assert obs.host_read("test_other", list, (1, 2)) == [1, 2]
+        assert obs.counters(traced=True) == {"test_other": 1}
+    after = obs.counters()
+    assert after["test_site"] - before.get("test_site", 0) == 2
+    assert after["test_other"] - before.get("test_other", 0) == 1
+    before = obs.counters()
+    _sync_solve(eta=None)
+    after = obs.counters()
+    reads = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)}
+    assert reads == {"auto_eta": 1, "orders_min": 2, "orders_max": 2,
+                     "init_perm": 1, "solve_rels": 1, "solve_x": 1}
+
+
+def test_span_log_is_bounded_and_starts_afresh_with_each_session(
+        monkeypatch):
+    """The log keeps the last ``LOG_ENTRIES`` spans, reading it clears
+    nothing, and a new profiler session starts it empty."""
+    from repro_torch.obs import recorder
+
+    monkeypatch.setattr(recorder, "LOG_ENTRIES", 5)
+    with _cpu_profiler():
+        assert recorder.tracing() and obs.spans() == []
+        for i in range(8):
+            with obs.span(f"t/{i}", i=i):
+                pass
+        got = obs.spans()
+        assert [s["name"] for s in got] == [f"t/{i}" for i in range(3, 8)]
+        assert obs.spans() == got
+        assert all(s["parent"] is None and s["root"] == s["id"]
+                   and s["t0_ns"] <= s["t1_ns"] and s["device_ms"] is None
+                   for s in got)
+    assert not recorder.tracing()
+    with obs.span("t/untraced"):
+        pass
+    assert obs.spans() == got
+    with _cpu_profiler():
+        assert obs.spans() == [] and obs.counters(traced=True) == {}
+
+
+def test_profiled_solve_logs_its_spans_as_profiler_ranges():
+    """Under a profiler and no recorder, a solve's spans go to the log,
+    nested by id under one root, in start order, and each is a
+    ``record_function`` range of the profiler's trace."""
+    with _cpu_profiler() as prof:
+        res = _sync_solve()
+    got = obs.spans()
+    root = got[0]
+    assert root["name"] == "solve" and root["parent"] is None
+    assert root["algo"] == "centralvr_sync"
+    ids = {s["id"]: s for s in got}
+    for s in got[1:]:
+        up = ids[s["parent"]]
+        assert s["root"] == root["id"]
+        assert up["t0_ns"] <= s["t0_ns"] <= s["t1_ns"] <= up["t1_ns"]
+    rounds = [s for s in got if s["name"] == "solve/round"]
+    assert len(rounds) == ROUNDS
+    for r in rounds:
+        kids = [s["name"] for s in got if s["parent"] == r["id"]]
+        assert kids == ["solve/epoch", "solve/average", "solve/rel"]
+    assert {s["name"] for s in got} <= {e.name for e in prof.events()}
+    np.testing.assert_array_equal(res.rels, _sync_solve().rels)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_recorded_sync_solve_span_rows_validate_with_consistent_ids(
+        tmp_path, fused):
+    """A recorded Algorithm 2 solve: its span rows validate under both
+    validators (schema v1, the log's keys as extra fields), every row's
+    parent is another row's id, all share the root row's id, the rows are
+    the log's spans, and its host reads are its ``sync/<site>`` rows."""
+    path = str(tmp_path / "run.jsonl")
+    before = obs.counters()
+    with obs.recording(path):
+        on = _sync_solve(fused=fused, eta=None)
+        got = obs.spans()
+    after = obs.counters()
+    np.testing.assert_array_equal(on.rels, _sync_solve(fused=fused,
+                                                       eta=None).rels)
+    assert schema.validate_file(path) == jschema.validate_file(path)
+    rows = [r for r in schema.load_rows(path) if r["kind"] == "span"]
+    assert _phases(rows) == ["solve/build", *DRIVER_SPANS["centralvr_sync"],
+                             "solve/centralvr_sync/execute", "solve/out",
+                             "solve"]
+    ids = {r["id"]: r for r in rows}
+    root = rows[-1]
+    assert root["parent"] is None and root["root"] == root["id"]
+    for r in rows[:-1]:
+        assert r["parent"] in ids and r["root"] == root["id"]
+        assert ids[r["parent"]]["t0"] <= r["t0"]
+    assert sorted(ids) == sorted(s["id"] for s in got
+                                 if s["root"] == root["id"])
+    reads = {}
+    for r in rows:
+        if r["name"].startswith("sync/"):
+            site = r["name"][len("sync/"):]
+            reads[site] = reads.get(site, 0) + 1
+    assert reads == {k: after[k] - before.get(k, 0) for k in after
+                     if after[k] != before.get(k, 0)}
+    assert ("init_perm" in reads) == fused
+
+
+def test_staged_call_under_a_profiler_is_a_span_and_waits_for_nothing(
+        tmp_path, monkeypatch):
+    """A profiler and no recorder: the execute span goes to the log, and
+    the call neither synchronises nor writes a row."""
+    from repro_torch.obs import stage
+
+    def refuse(*a, **kw):
+        raise AssertionError("staged_call synchronised under a profiler")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", refuse)
+    with _cpu_profiler():
+        assert stage.staged_call(lambda v: v + 1, 1, _label="t/prof",
+                                 _device="cpu") == 2
+        with pytest.raises(ZeroDivisionError):
+            stage.staged_call(lambda: 1 / 0, _label="t/prof_fail")
+        got = obs.spans()
+    assert [(s["name"], s["failed"]) for s in got] == [
+        ("t/prof/execute", False), ("t/prof_fail/execute", True)]
+
 
 def test_train_loop_emits_structured_epoch_rows(tmp_path):
     """``mamba2-130m.reduced()`` at W = 2: the first epoch staged, the
